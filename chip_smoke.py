@@ -9,17 +9,30 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions; no
    CUDA device is a failure — nothing falls back to the CPU;
-2. build both CUDA kernels from csrc/ (nvcc, seconds printed);
-3. each kernel against its plain torch version on the card, at the shapes
-   the main path gives it, on bench_scene(3_000) at 96x48 and
-   bench_scene(100_000) at 1920x1080;
-4. the main path: Renderer(bench_scene(100_000), 1920, 1080,
+2. build the four CUDA kernels from csrc/ (one nvcc call, seconds and the
+   build log printed);
+3. bin_clusters and closest_hit against their plain torch versions on the
+   card, at the shapes the main path gives them, on bench_scene(3_000) at
+   96x48 and bench_scene(100_000) at 1920x1080;
+4. the debug path: Renderer(bench_scene(100_000), 1920, 1080,
    device="cuda").render_frame(mode) for modes 0-6, with launch counters
    reset just before and read just after; frames must be finite and hit
    something; modes 3-6 must match the frame rendered through the plain
    versions, modes 0-2 their hit ids; one PNG is written to the temp dir;
 5. timing with CUDA events: mode-5 frame ms and Mrays/s, and each kernel
-   beside its plain version.
+   beside its plain version;
+6. the Whitted path: any_hit against its plain version on a 3k/96x48
+   shadow batch and on the real primary shadow batch of the 1080p/100k
+   Whitted frame (captured at the occluder); then the same Renderer's
+   render_whitted_frame(max_depth=3) with counters reset just before and
+   read just after (bin_clusters, closest_hit and any_hit must launch),
+   checked against the frame rendered through the plain versions, one
+   PNG, and its frame time beside any_hit's and any_hit_plain's;
+7. the 1M path: bin_clusters_super against its plain version and the dense
+   kernel at bench_scene(1_000_000) 1080p shapes, then
+   Renderer(bench_scene(1_000_000), 1920, 1080,
+   device="cuda").render_frame(5) with counters (bin_clusters_super must
+   launch), checked against the plain-version frame and timed.
 
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {...}}.
@@ -46,13 +59,18 @@ from directx_raytracer_tpu_torch.ops.intersect import hit_record
 from directx_raytracer_tpu_torch.ops.rays import generate_rays_tiled, pick_schedule
 from directx_raytracer_tpu_torch.render.debug import render_debug
 from directx_raytracer_tpu_torch.render.renderer import Renderer
+from directx_raytracer_tpu_torch.render.whitted import render_whitted
 from directx_raytracer_tpu_torch.utils.image import to_u8, write_png
 
 BIG_SCENE = (100_000, 1920, 1080)
 SMALL_SCENE = (3_000, 96, 48)
+HUGE_SCENE = (1_000_000, 1920, 1080)
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 FRAME_REPS = 15
+WHITTED_DEPTH = 3  # the bench.py:333-366 workload
+WHITTED_REPS = 5
+HUGE_REPS = 5
 
 # Tolerances, kernel vs plain version on the same card and inputs:
 # * bin_clusters computes the plain version's ops in the same order with
@@ -73,6 +91,17 @@ T_RTOL_SHARE = 0.999
 #   hit_record ids are compared instead, at the winner gate.
 PIXEL_LEVELS = 2
 PIXEL_AGREE = 0.99
+# * any_hit contracts into FMAs as closest_hit does, so a shadow ray grazing
+#   a triangle edge may flip: blocked flags agree on >= 99.9% of rays, the
+#   reference's own occlusion gate (tests/test_pallas_interpret.py:77).
+BLOCKED_AGREE = 0.999
+# * bin_clusters_super runs the dense kernel's slab routine: overlaps and
+#   entries equal its plain version and the dense kernel exactly (entries
+#   where both overlap), so the gates are 1.0 and 0.
+# * Whitted frames vs the plain-version frame: the pixel gate above, and
+#   alive rays per pass within 0.1% of the pixel count (a flipped hit or
+#   shadow verdict moves at most a few bounce rays).
+ALIVE_SHARE = 0.001
 
 
 def card_line() -> str:
@@ -115,7 +144,7 @@ def kernel_inputs(n_tris, width, height, device):
     tp = ci.tile_params(o, d, tile_r)
     cb = ci.cluster_rows(bvh.clusters)
     return dict(o=o, d=d, t_init=t_init, tp=tp, cb=cb, wrows=bvh.wrows,
-                tile_r=tile_r)
+                tile_r=tile_r, bvh=bvh, lights=scene.lights)
 
 
 def check_bin(x, label):
@@ -194,8 +223,8 @@ def main_path(device):
     torch.cuda.synchronize()
     launches = dict(ci.LAUNCHES)
     print(f"main path launches: {launches}")
-    for name, count in launches.items():
-        require(count > 0, f"{name} was not launched on the main path")
+    for name in ("bin_clusters", "closest_hit"):
+        require(launches[name] > 0, f"{name} was not launched on the main path")
     require(r.bvh is not None, "main path did not build a BVH")
 
     miss = torch.tensor(MISS_COLOR, device=device)
@@ -238,6 +267,206 @@ def main_path(device):
     return r, launches
 
 
+def plain_fns(bvh):
+    """intersect_fn and occluder_factory through the kernels' plain
+    versions, on the card: the reference frames are rendered with them."""
+    def intersect(o, d, geo, tile_r=None):
+        return intersect_fused(o, d, bvh.clusters, bvh.wrows, tile_r or TILE_R,
+                               plain=True, srows=bvh.srows)
+
+    def factory(geo):
+        def occluded(o, d, t_max):
+            return ci.occluded_fused(o, d, bvh.clusters, bvh.wrows, t_max,
+                                     plain=True, srows=bvh.srows)
+        return occluded
+
+    return intersect, factory
+
+
+def frames_agree(img, ref) -> float:
+    diff = np.abs(to_u8(img).astype(int) - to_u8(ref).astype(int))
+    return float(((diff <= PIXEL_LEVELS).all(axis=-1)).mean())
+
+
+def any_hit_args(o, d, t_max, bvh):
+    """The any_hit operands of a shadow batch, as occluded_fused builds
+    them."""
+    o, d, t_max, *lists = ci.anyhit_schedule(o, d, t_max, bvh.clusters,
+                                             srows=bvh.srows)
+    return (o, d, t_max, bvh.wrows, *lists, TILE_R)
+
+
+def check_any_hit(args, label):
+    b_k = ci.any_hit(*args)
+    b_p = ci.any_hit_plain(*args)
+    torch.cuda.synchronize()
+    agree = (b_k == b_p).float().mean().item()
+    armed = int((args[2] > 0).sum())
+    print(f"[{label}] any_hit: {args[6].shape[0]} tiles x {args[-1]} rays "
+          f"({armed} armed), list length {args[4].shape[1]}, "
+          f"{int(b_p.sum())} blocked; blocked agreement {agree:.6f}")
+    require(agree >= BLOCKED_AGREE, f"any_hit blocked agreement {agree}")
+    require(int(b_p.sum()) > 0, "the shadow batch blocks no ray")
+    return float((b_k != b_p).any())
+
+
+def small_shadow_batch(device):
+    """3k/96x48: rays from the primary hit points toward the first light."""
+    x = kernel_inputs(*SMALL_SCENE, device)
+    n = x["o"].shape[0]
+    hit = intersect_fused(x["o"], x["d"], x["bvh"].clusters, x["wrows"],
+                          x["tile_r"])
+    p = x["o"] + x["d"] * torch.where(hit.mask, hit.t, 0.0)[:, None]
+    light = torch.tensor(x["lights"][0].position, device=device)
+    to_l = light - p
+    dist = to_l.norm(dim=1)
+    d = (to_l / dist[:, None]).contiguous()
+    t_max = torch.where(hit.mask, dist - 2e-3, 0.0)
+    require(t_max.shape[0] == n, "shadow batch shape")
+    return any_hit_args((p + d * 1e-3).contiguous(), d, t_max, x["bvh"])
+
+
+def whitted_path(r, card):
+    """Phase 6 on the debug path's Renderer (bench_scene(100_000), 1080p)."""
+    width, height = r.width, r.height
+    check_any_hit(small_shadow_batch(r.device), "3k 96x48")
+
+    # The primary pass's shadow batch, exactly as direct_lighting hands it
+    # to the occluder (Morton-sorted, 4 lights x 2,073,600 rays).
+    captured = []
+
+    def capturing(geo):
+        occluded = r.occluder_factory(geo)
+
+        def occ(o, d, t_max):
+            if not captured:
+                captured.append((o.clone(), d.clone(), t_max.clone()))
+            return occluded(o, d, t_max)
+        return occ
+
+    pos, rot = r.camera.snapshot()
+    render_whitted(r.dscene, pos, rot, width, height, max_depth=WHITTED_DEPTH,
+                   intersect_fn=r.intersect_fn, occluder_factory=capturing)
+    o, d, t_max = captured[0]
+    require(o.shape == (r.dscene.lights.n_lights * width * height, 3),
+            f"primary shadow batch shape {tuple(o.shape)}")
+    args = any_hit_args(o, d, t_max, r.bvh)
+    err = check_any_hit(args, "100k 1080p primary shadow batch")
+    record = dict(max_abs_err=err,
+                  ms=time_ms(lambda: ci.any_hit(*args), KERNEL_REPS),
+                  plain_ms=time_ms(lambda: ci.any_hit_plain(*args), PLAIN_REPS,
+                                   warmup=1))
+    del captured, args
+
+    ci.reset_launch_counts()
+    img, stats = r.render_whitted_frame(max_depth=WHITTED_DEPTH)
+    torch.cuda.synchronize()
+    launches = dict(ci.LAUNCHES)
+    print(f"whitted path launches: {launches}")
+    for name in ("bin_clusters", "closest_hit", "any_hit"):
+        require(launches[name] > 0, f"{name} was not launched on the Whitted path")
+    alive, dropped = stats["alive"].tolist(), stats["dropped"].tolist()
+    print(f"whitted stats: alive per pass {alive}, dropped per pass {dropped}")
+    require(tuple(img.shape) == (height, width, 3), "whitted shape")
+    require(bool(torch.isfinite(img).all()), "whitted frame not finite")
+    bg = r.dscene.background_color
+    shaded = int((img != bg).any(dim=-1).sum())
+    require(shaded > 0, "whitted frame is all background")
+    print(f"whitted: {shaded} of {width * height} pixels not background")
+    png = os.path.join(tempfile.gettempdir(), "chip_smoke_whitted.png")
+    write_png(png, to_u8(img))
+    print(f"wrote {png}")
+
+    isect, occf = plain_fns(r.bvh)
+    ref, ref_stats = render_whitted(r.dscene, pos, rot, width, height,
+                                    max_depth=WHITTED_DEPTH, intersect_fn=isect,
+                                    occluder_factory=occf)
+    agree = frames_agree(img, ref)
+    gap = int((stats["alive"] - ref_stats["alive"]).abs().max())
+    print(f"whitted: {agree:.6f} of pixels within {PIXEL_LEVELS} levels of the "
+          f"plain-version frame; plain alive {ref_stats['alive'].tolist()}, "
+          f"largest alive gap {gap}")
+    require(agree >= PIXEL_AGREE, f"whitted pixel agreement {agree}")
+    require(gap <= ALIVE_SHARE * width * height, f"whitted alive gap {gap}")
+
+    frame_ms = time_ms(lambda: r.render_whitted_frame(max_depth=WHITTED_DEPTH),
+                       WHITTED_REPS)
+    print(f"whitted depth-{WHITTED_DEPTH} frame at {width}x{height}, "
+          f"bench_scene(100_000): {frame_ms:.4f} ms median of {WHITTED_REPS} "
+          f"[{card}]")
+    return record, launches
+
+
+def huge_path(device, card):
+    """Phase 7: bench_scene(1_000_000) at 1080p."""
+    n_tris, width, height = HUGE_SCENE
+    t0 = time.perf_counter()
+    r = Renderer(testscenes.bench_scene(n_tris, width, height), width, height,
+                 device=device)
+    torch.cuda.synchronize()
+    c = r.bvh.clusters.aabb_min.shape[0]
+    print(f"1M scene: {c} clusters, {r.bvh.srows.shape[1]} superblocks, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    require(c >= ci.SUPER_MIN_C, f"1M scene has only {c} clusters")
+
+    tile, tile_r = pick_schedule(height, width)
+    pos, rot = r.camera.snapshot()
+    o, d = generate_rays_tiled(pos, rot, width, height, *tile, device=device)
+    o, d, _ = ci.pad_and_seed(o, d, r.bvh.clusters, tile_r)
+    tp = ci.tile_params(o, d, tile_r)
+    cb = ci.cluster_rows(r.bvh.clusters)
+    sb = r.bvh.srows
+    e_k, o_k = ci.bin_clusters_super(tp, cb, sb)
+    e_p, o_p = ci.bin_clusters_super_plain(tp, cb, sb)
+    e_d, o_d = ci.bin_clusters_dense(tp, cb)
+    torch.cuda.synchronize()
+    skipped = float((e_k == ci.BIG).float().mean())
+    print(f"[1M 1080p] bin_clusters_super: {tuple(o_k.shape)} pairs, "
+          f"{int(o_p.sum())} overlapping, {skipped:.4f} of pairs in skipped "
+          f"superblocks; equal to plain: overlap {torch.equal(o_k, o_p)}, "
+          f"entry {torch.equal(e_k, e_p)}; equal to dense: overlap "
+          f"{torch.equal(o_k, o_d)}, entry {torch.equal(e_k[o_d], e_d[o_d])}")
+    require(torch.equal(o_k, o_p) and torch.equal(e_k, e_p),
+            "bin_clusters_super differs from its plain version")
+    require(torch.equal(o_k, o_d) and torch.equal(e_k[o_d], e_d[o_d]),
+            "bin_clusters_super differs from the dense kernel")
+    both = o_k & o_p
+    record = dict(
+        max_abs_err=float((e_k[both] - e_p[both]).abs().max()) if both.any() else 0.0,
+        ms=time_ms(lambda: ci.bin_clusters_super(tp, cb, sb), KERNEL_REPS),
+        plain_ms=time_ms(lambda: ci.bin_clusters_super_plain(tp, cb, sb),
+                         PLAIN_REPS))
+    dense_ms = time_ms(lambda: ci.bin_clusters_dense(tp, cb), KERNEL_REPS)
+    print(f"bin_clusters_super at 1M 1080p shapes: kernel {record['ms']:.4f} ms, "
+          f"dense kernel {dense_ms:.4f} ms, plain {record['plain_ms']:.4f} ms "
+          f"(medians, CUDA events) [{card}]")
+    del e_k, o_k, e_p, o_p, e_d, o_d, both
+
+    ci.reset_launch_counts()
+    img = r.render_frame(5)
+    torch.cuda.synchronize()
+    launches = dict(ci.LAUNCHES)
+    print(f"1M path launches: {launches}")
+    require(launches["bin_clusters_super"] > 0,
+            "bin_clusters_super was not launched on the 1M path")
+    require(launches["closest_hit"] > 0, "closest_hit was not launched on the 1M path")
+    require(bool(torch.isfinite(img).all()), "1M frame not finite")
+    miss = torch.tensor(MISS_COLOR, device=device)
+    require(int((img != miss).any(dim=-1).sum()) > 0, "1M frame hits nothing")
+    isect, _ = plain_fns(r.bvh)
+    ref = render_debug(r.dscene, pos, rot, 5, width, height,
+                       intersect_fn=isect, fetch_record=False)
+    agree = frames_agree(img, ref)
+    print(f"1M mode 5: {agree:.6f} of pixels within {PIXEL_LEVELS} levels of "
+          f"the plain-version frame")
+    require(agree >= PIXEL_AGREE, f"1M pixel agreement {agree}")
+    frame_ms = time_ms(lambda: r.render_frame(5), HUGE_REPS)
+    print(f"mode-5 frame at {width}x{height}, bench_scene(1_000_000): "
+          f"{frame_ms:.4f} ms median of {HUGE_REPS}, "
+          f"{width * height / frame_ms / 1e3:.2f} Mrays/s [{card}]")
+    return record, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the GPU",
@@ -268,10 +497,25 @@ def main() -> int:
           f"{frame_ms:.4f} ms median of {FRAME_REPS}, "
           f"{n_rays / frame_ms / 1e3:.2f} Mrays/s [{card}]")
 
-    sources = {"bin_clusters": ("csrc/bin_clusters.cu",
-                                "directx_raytracer_tpu/bvh/pallas_intersect.py:307"),
-               "closest_hit": ("csrc/closest_hit.cu",
-                               "directx_raytracer_tpu/bvh/pallas_intersect.py:762")}
+    records["any_hit"], whitted_launches = whitted_path(r, card)
+    print(f"any_hit at the 1080p/100k primary shadow batch: kernel "
+          f"{records['any_hit']['ms']:.4f} ms, plain "
+          f"{records['any_hit']['plain_ms']:.4f} ms (medians, CUDA events) "
+          f"[{card}]")
+    del r
+    torch.cuda.empty_cache()
+    records["bin_clusters_super"], huge_launches = huge_path(device, card)
+
+    # Each kernel's launches are read from the path it serves: the debug
+    # path (bin_clusters, closest_hit), the Whitted path (any_hit) and the
+    # 1M path (bin_clusters_super).
+    launches["any_hit"] = whitted_launches["any_hit"]
+    launches["bin_clusters_super"] = huge_launches["bin_clusters_super"]
+    tpu = "directx_raytracer_tpu/bvh/pallas_intersect.py"
+    sources = {"bin_clusters": ("csrc/bin_clusters.cu", f"{tpu}:307"),
+               "closest_hit": ("csrc/closest_hit.cu", f"{tpu}:762"),
+               "any_hit": ("csrc/any_hit.cu", f"{tpu}:1001"),
+               "bin_clusters_super": ("csrc/bin_clusters.cu", f"{tpu}:367")}
     kernels = []
     for name, (src, replaces) in sources.items():
         kernels.append(dict(name=name, route="cuda",

@@ -1,10 +1,10 @@
-"""Acceleration structure: treelet clusters + the Woop rows the closest-hit
-kernel stages.
+"""Acceleration structure: treelet clusters + the rows the kernels stage.
 
 Counterpart of ``directx_raytracer_tpu/bvh/__init__.py`` (``BVH``,
-``build_bvh``, ``make_bvh_intersect_fn``).  ``build_bvh`` /
-``make_bvh_intersect_fn`` are the renderer-facing API (drop-in for the
-brute-force default of render/debug.py).
+``build_bvh``, ``make_bvh_intersect_fn``, ``make_bvh_occluder_factory``).
+``make_bvh_intersect_fn`` / ``make_bvh_occluder_factory`` are the
+renderer-facing API (drop-ins for the brute-force defaults of
+render/debug.py and render/whitted.py).
 """
 
 from __future__ import annotations
@@ -14,16 +14,25 @@ from dataclasses import dataclass
 import torch
 
 from .clustered import ClusterSet, build_clusters, clusters_from_numpy
-from .cuda_intersect import TILE_R, intersect_fused, woop_rows
+from .cuda_intersect import (
+    TILE_R,
+    cluster_rows,
+    intersect_fused,
+    occluded_fused,
+    super_rows,
+    woop_rows,
+)
 
 
 @dataclass
 class BVH:
-    """Clusters plus their (C, 12, K) Woop rows (``woop_rows``), the
-    kernel-friendly copy made once per build."""
+    """Clusters plus the kernel-friendly copies made once per build: their
+    (C, 12, K) Woop rows (``woop_rows``) and (8, S) superblock hull rows
+    (``super_rows``, read by the superblock binner)."""
 
     clusters: ClusterSet
     wrows: torch.Tensor
+    srows: torch.Tensor
 
 
 def build_bvh(geometry, k: int = 128) -> BVH:
@@ -31,7 +40,7 @@ def build_bvh(geometry, k: int = 128) -> BVH:
     leaves, so clusters align with leaf boundaries), on the geometry's
     device."""
     cs = build_clusters(geometry, k=k)
-    return BVH(cs, woop_rows(cs))
+    return BVH(cs, woop_rows(cs), super_rows(cluster_rows(cs)))
 
 
 def make_bvh_intersect_fn(bvh: BVH):
@@ -41,9 +50,23 @@ def make_bvh_intersect_fn(bvh: BVH):
 
     def intersect(origins, dirs, geometry, tile_r=None):
         return intersect_fused(origins, dirs, bvh.clusters, bvh.wrows,
-                               tile_r=tile_r or TILE_R)
+                               tile_r=tile_r or TILE_R, srows=bvh.srows)
 
     return intersect
+
+
+def make_bvh_occluder_factory(bvh: BVH):
+    """``factory(geometry) -> occluded(origins, dirs, max_t) -> (N,) bool``
+    over a prebuilt BVH, for shadow rays (``TILE_R``-ray tiles)."""
+
+    def factory(geometry):
+        def occluded(origins, dirs, max_t):
+            return occluded_fused(origins, dirs, bvh.clusters, bvh.wrows,
+                                  max_t, srows=bvh.srows)
+
+        return occluded
+
+    return factory
 
 
 __all__ = [
@@ -54,4 +77,6 @@ __all__ = [
     "clusters_from_numpy",
     "intersect_fused",
     "make_bvh_intersect_fn",
+    "make_bvh_occluder_factory",
+    "occluded_fused",
 ]

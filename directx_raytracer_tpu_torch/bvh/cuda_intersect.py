@@ -2,10 +2,13 @@
 per-tile schedule between them.
 
 Counterpart of ``directx_raytracer_tpu/bvh/pallas_intersect.py``: the
-binning kernel ``_bin_kernel_body`` becomes ``bin_clusters``
-(csrc/bin_clusters.cu), the closest-hit kernel ``_make_kernel`` becomes
-``closest_hit`` (csrc/closest_hit.cu), and ``intersect_pallas`` becomes
-``intersect_fused``.  A frame runs:
+binning kernels ``_bin_kernel_body`` and ``_bin_kernel_super_body`` become
+``bin_clusters_dense`` and ``bin_clusters_super`` (csrc/bin_clusters.cu,
+dispatched by ``bin_clusters`` on the cluster count), the closest-hit kernel
+``_make_kernel`` becomes ``closest_hit`` (csrc/closest_hit.cu), the any-hit
+kernel ``_make_anyhit_kernel`` becomes ``any_hit`` (csrc/any_hit.cu), and
+``intersect_pallas``/``occluded_pallas`` become ``intersect_fused``/
+``occluded_fused``.  A closest-hit query runs:
 
 1. pad the rays to whole tiles of ``tile_r`` (origin 0, dir 1, seed 0:
    padding never hits) and seed each ray's best t with
@@ -15,17 +18,22 @@ binning kernel ``_bin_kernel_body`` becomes ``bin_clusters``
    (tile, cluster) pair;
 4. the visit lists (torch): entries of non-overlapping pairs masked to
    +inf, each tile's row sorted, cut at the largest overlap count — the
-   one host sync of a frame;
+   query's one host sync;
 5. ``closest_hit``: each tile walks its list near to far and stops once
    the next entry exceeds the tile's largest best t.  No cluster is ever
    dropped: every overlapping cluster is either visited or provably
    farther than every ray's best.
 
-Each kernel has a plain torch version here, ``bin_clusters_plain`` and
-``closest_hit_plain``, computing the same function; the CPU tests run them
-and the GPU check compares the kernels with them.  A wrapper takes its
-plain version only for tensors on the CPU; for CUDA tensors it launches
-its kernel or raises.
+An occlusion query pads with parked rays (origin 1e30, dir 1, t_max 0),
+bounds each tile over its armed rays only, caps its binning at its largest
+t_max, and runs ``any_hit``, which stops a tile once the next entry
+exceeds the largest t_max of its still-unblocked rays.
+
+Each kernel has a plain torch version here (``bin_clusters_plain``,
+``bin_clusters_super_plain``, ``closest_hit_plain``, ``any_hit_plain``)
+computing the same function; the CPU tests run them and the GPU check
+compares the kernels with them.  A wrapper takes its plain version only for
+tensors on the CPU; for CUDA tensors it launches its kernel or raises.
 
 The kernels are compiled with nvcc on first use, from the sources in
 ``csrc/``, into ``_build/`` next to this package, and bound with ctypes.
@@ -51,12 +59,17 @@ from .clustered import ClusterSet
 
 TILE_R = 256  # default rays per tile (one 8x32 pixel tile)
 MAX_TILE_R = 768  # closest_hit: 256 threads x at most 3 rays each
-PLAIN_CHUNK = 128  # tiles per step of closest_hit_plain (~50 MB temporaries)
+ANYHIT_MAX_TILE_R = 256  # any_hit: one ray per thread
+ANYHIT_CHUNK = 16  # any_hit: list positions per work item (one CTA each)
+PLAIN_CHUNK = 128  # tiles per step of the plain walks (~50 MB temporaries)
 BIG = 1e30
+SUPER_BLOCK = 128  # clusters per superblock of the superblock binner
+SUPER_MIN_C = 2048  # from this cluster count on, bin_clusters skips superblocks
 
 # Kernel launches per wrapper since the last reset (plain integers; the
-# plain versions never count).
-LAUNCHES = {"bin_clusters": 0, "closest_hit": 0}
+# plain versions never count).  "bin_clusters" counts the dense binner.
+LAUNCHES = {"bin_clusters": 0, "bin_clusters_super": 0, "closest_hit": 0,
+            "any_hit": 0}
 
 
 def reset_launch_counts() -> None:
@@ -71,12 +84,12 @@ def reset_launch_counts() -> None:
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("bin_clusters.cu", "closest_hit.cu")
+SOURCES = ("bin_clusters.cu", "closest_hit.cu", "any_hit.cu")
 # -Xptxas -v reports each kernel's registers, shared memory and spills into
-# the build log.  No --use_fast_math: both kernels need IEEE divides and
+# the build log.  No --use_fast_math: the kernels need IEEE divides and
 # unflushed denormals.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -97,23 +110,40 @@ def _library_path() -> Path:
 
 def build_kernels() -> tuple[Path, float]:
     """Compile csrc/*.cu into one shared library unless the library for
-    these exact sources and flags exists.  Returns (path, seconds spent
-    compiling, 0.0 if nothing was compiled).  The compiler's output goes
-    to the ``.log`` file beside the library."""
+    these exact sources and flags exists: one nvcc per source, all started
+    together, then one link.  Returns (path, seconds spent building, 0.0 if
+    nothing was built).  The compilers' output goes to the ``.log`` file
+    beside the library."""
     so = _library_path()
     if so.exists():
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / name) for name in SOURCES]]
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(CSRC / name)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for name, obj in zip(SOURCES, objs)]
+    log = [f"{name}:\n{proc.communicate()[0]}"
+           for name, proc in zip(SOURCES, procs)]
+    failed = [name for name, proc in zip(SOURCES, procs) if proc.returncode]
+    if not failed:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log.append(f"link:\n{link.stdout}{link.stderr}")
+        if link.returncode:
+            failed = ["link"]
     seconds = time.perf_counter() - t0
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                           + "\n".join(log))
     os.replace(tmp, so)
     return so, seconds
 
@@ -125,8 +155,12 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dxrt_bin_clusters.argtypes = [p, p, p, p, i, i, p]
     lib.dxrt_bin_clusters.restype = i
+    lib.dxrt_bin_clusters_super.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.dxrt_bin_clusters_super.restype = i
     lib.dxrt_closest_hit.argtypes = [p] * 9 + [i, i, i, i, f, p]
     lib.dxrt_closest_hit.restype = i
+    lib.dxrt_any_hit.argtypes = [p] * 10 + [i, i, i, i, f, i, p]
+    lib.dxrt_any_hit.restype = i
     lib.dxrt_error_string.argtypes = [i]
     lib.dxrt_error_string.restype = ctypes.c_char_p
     return lib
@@ -167,21 +201,35 @@ def cluster_rows(cs: ClusterSet) -> torch.Tensor:
     return cb
 
 
-def tile_params(origins, dirs, tile_r: int, t_min=T_MIN) -> torch.Tensor:
+def tile_params(origins, dirs, tile_r: int, t_min=T_MIN, t_cap=None,
+                live=None) -> torch.Tensor:
     """(T, 16) f32 per-tile interval params for ``bin_clusters``:
     [o_lo xyz | o_hi xyz | d_lo xyz | d_hi xyz | len_hi | t_min | t_cap |
-    pad], with len_hi = 1 (normalized rays) and t_cap = BIG (no cap)."""
+    pad], with len_hi = 1 (normalized rays).  ``t_cap`` (T,) caps each
+    tile's overlaps at that entry distance; None writes BIG (no cap).
+    ``live`` (N,) bool bounds each tile over its live lanes only (all lanes
+    of a tile that has none): a lane no cluster can matter to must not
+    widen its tile's box."""
     tiles = origins.shape[0] // tile_r
     o = origins.reshape(tiles, tile_r, 3)
     d = dirs.reshape(tiles, tile_r, 3)
     tp = origins.new_zeros((tiles, 16))
-    tp[:, 0:3] = o.amin(dim=1)
-    tp[:, 3:6] = o.amax(dim=1)
-    tp[:, 6:9] = d.amin(dim=1)
-    tp[:, 9:12] = d.amax(dim=1)
+    if live is None:
+        tp[:, 0:3] = o.amin(dim=1)
+        tp[:, 3:6] = o.amax(dim=1)
+        tp[:, 6:9] = d.amin(dim=1)
+        tp[:, 9:12] = d.amax(dim=1)
+    else:
+        live = live.reshape(tiles, tile_r, 1)
+        live = live | ~live.any(dim=1, keepdim=True)
+        inf = float("inf")
+        tp[:, 0:3] = torch.where(live, o, inf).amin(dim=1)
+        tp[:, 3:6] = torch.where(live, o, -inf).amax(dim=1)
+        tp[:, 6:9] = torch.where(live, d, inf).amin(dim=1)
+        tp[:, 9:12] = torch.where(live, d, -inf).amax(dim=1)
     tp[:, 12] = 1.0
     tp[:, 13] = t_min
-    tp[:, 14] = BIG
+    tp[:, 14] = BIG if t_cap is None else t_cap
     return tp
 
 
@@ -212,10 +260,10 @@ def bin_clusters_plain(tp: torch.Tensor, cb: torch.Tensor):
     return entry / len_hi, overlap
 
 
-def bin_clusters(tp: torch.Tensor, cb: torch.Tensor):
+def bin_clusters_dense(tp: torch.Tensor, cb: torch.Tensor):
     """Entry (T, C) f32 and overlap (T, C) bool of every (tile, cluster)
-    pair: the ``bin_clusters`` kernel for CUDA tensors, its plain version
-    for CPU tensors."""
+    pair: the dense ``bin_clusters`` kernel for CUDA tensors, its plain
+    version for CPU tensors."""
     if tp.device.type == "cpu":
         return bin_clusters_plain(tp, cb)
     tiles, c = tp.shape[0], cb.shape[1]
@@ -234,12 +282,97 @@ def bin_clusters(tp: torch.Tensor, cb: torch.Tensor):
     return entry, ovl.view(torch.bool)
 
 
+def super_rows(cb: torch.Tensor, block: int = SUPER_BLOCK) -> torch.Tensor:
+    """(8, S) f32 superblock hull rows, S = ceil(C / block): the AABB hull
+    of each run of ``block`` clusters of ``cb`` in ``cluster_rows`` layout,
+    over its VALID clusters only (an invalid cluster's box must not drag a
+    hull), with valid = any; a hull of no valid cluster is (BIG, -BIG).
+    ``planar_super_rows`` without the TPU's 128-lane padding."""
+    c = cb.shape[1]
+    s = -(-c // block)
+    r = torch.cat([cb, cb.new_zeros((8, s * block - c))], dim=1)
+    r = r.reshape(8, s, block)
+    lane_ok = r[6:7] > 0.5
+    valid = r[6].amax(dim=-1)
+    lo = torch.where(lane_ok, r[0:3], BIG).amin(dim=-1)
+    hi = torch.where(lane_ok, r[3:6], -BIG).amax(dim=-1)
+    sb = cb.new_zeros((8, s))
+    sb[0:3] = torch.where(valid > 0.5, lo, BIG)
+    sb[3:6] = torch.where(valid > 0.5, hi, -BIG)
+    sb[6] = valid
+    return sb
+
+
+def _check_super(cb, sb, block: int) -> None:
+    if block < 1:
+        raise ValueError(f"block {block} < 1")
+    s = -(-cb.shape[1] // block)
+    if sb.shape != (8, s):
+        raise ValueError(f"sb: shape {tuple(sb.shape)}, expected (8, {s}): "
+                         f"super_rows(cb, block={block})")
+
+
+def bin_clusters_super_plain(tp: torch.Tensor, cb: torch.Tensor,
+                             sb: torch.Tensor, block: int = SUPER_BLOCK):
+    """Plain torch version of ``bin_clusters_super``: the dense slab test,
+    then entry = BIG and overlap = False for every cluster whose superblock
+    hull (row of ``sb = super_rows(cb, block)``) the tile misses
+    (``_bin_kernel_super_body``, pallas_intersect.py:367-393).  The slab
+    test is inclusion-monotone, so the overlaps equal the dense ones."""
+    _check_super(cb, sb, block)
+    _, sovl = bin_clusters_plain(tp, sb)
+    entry, ovl = bin_clusters_plain(tp, cb)
+    keep = sovl.repeat_interleave(block, dim=1)[:, :cb.shape[1]]
+    return torch.where(keep, entry, BIG), ovl & keep
+
+
+def bin_clusters_super(tp: torch.Tensor, cb: torch.Tensor, sb: torch.Tensor,
+                       block: int = SUPER_BLOCK):
+    """``bin_clusters_dense``'s overlaps, computed only inside superblocks
+    whose hull the tile overlaps (entry BIG elsewhere): the superblock
+    kernel for CUDA tensors, its plain version for CPU tensors.  ``sb`` is
+    ``super_rows(cb, block)``."""
+    if tp.device.type == "cpu":
+        return bin_clusters_super_plain(tp, cb, sb, block)
+    _check_super(cb, sb, block)
+    tiles, c = tp.shape[0], cb.shape[1]
+    s = sb.shape[1]
+    _check("tp", tp, torch.float32, (tiles, 16), tp.device)
+    _check("cb", cb, torch.float32, (8, c), tp.device)
+    _check("sb", sb, torch.float32, (8, s), tp.device)
+    entry = torch.empty((tiles, c), dtype=torch.float32, device=tp.device)
+    ovl = torch.empty((tiles, c), dtype=torch.uint8, device=tp.device)
+    if tiles and c:
+        lib = _lib()
+        with torch.cuda.device(tp.device):
+            stream = torch.cuda.current_stream(tp.device).cuda_stream
+            err = lib.dxrt_bin_clusters_super(
+                tp.data_ptr(), cb.data_ptr(), sb.data_ptr(), entry.data_ptr(),
+                ovl.data_ptr(), tiles, c, s, block, stream)
+        _launched(lib, "bin_clusters_super", err)
+    return entry, ovl.view(torch.bool)
+
+
+def bin_clusters(tp: torch.Tensor, cb: torch.Tensor, sb=None,
+                 plain: bool = False):
+    """Entry (T, C) f32 and overlap (T, C) bool of every (tile, cluster)
+    pair.  Below ``SUPER_MIN_C`` clusters the dense binner runs; from there
+    on the superblock binner, with ``sb`` = ``super_rows(cb)`` (built here
+    when not given).  ``plain=True`` runs their plain versions on any
+    device."""
+    if cb.shape[1] < SUPER_MIN_C:
+        return (bin_clusters_plain if plain else bin_clusters_dense)(tp, cb)
+    sb = super_rows(cb) if sb is None else sb
+    return (bin_clusters_super_plain if plain else bin_clusters_super)(
+        tp, cb, sb)
+
+
 def visit_lists(entry: torch.Tensor, overlap: torch.Tensor):
     """Each tile's overlapping clusters, near to far.
 
     Returns visit (T, L) i32 cluster ids, their entries (T, L) f32 and the
     per-tile counts (T,) i32, with L the largest count; slots past a
-    tile's count hold +inf entries.  Reading L is the frame's one host
+    tile's count hold +inf entries.  Reading L is the query's one host
     sync."""
     key = torch.where(overlap, entry, float("inf"))
     skey, order = torch.sort(key, dim=1, stable=True)
@@ -343,6 +476,107 @@ def closest_hit(origins, dirs, init_t, wrows, visit, ventry, counts,
 
 
 # ---------------------------------------------------------------------------
+# Any hit
+# ---------------------------------------------------------------------------
+
+
+def any_hit_plain(origins, dirs, t_max, wrows, visit, ventry, counts,
+                  tile_r: int, t_min=T_MIN):
+    """Plain torch version of ``any_hit``: the same per-tile walk, one list
+    position at a time for all live tiles at once (in chunks of
+    ``PLAIN_CHUNK`` tiles).  A tile stops at the first entry past the
+    largest t_max of its still-unblocked rays.  Same float-op order as the
+    kernel up to FMA contraction.  Returns blocked (N,) bool."""
+    tiles = counts.shape[0]
+    o = origins.reshape(tiles, tile_r, 3)
+    d = dirs.reshape(tiles, tile_r, 3)
+    tm = t_max.reshape(tiles, tile_r)
+    blocked = torch.zeros((tiles, tile_r), dtype=torch.bool,
+                          device=origins.device)
+    for i in range(visit.shape[1]):
+        # Entries ascend along a list and the gate only falls, so a tile
+        # that stops here never resumes.
+        gate = torch.where(blocked, -BIG, tm).amax(dim=1)
+        live = (counts > i) & (ventry[:, i] <= gate)
+        idx = live.nonzero()[:, 0]
+        if idx.numel() == 0:
+            break
+        for sel in idx.split(PLAIN_CHUNK):
+            w = wrows[visit[sel, i].long()][:, :, None, :]  # (A, 12, 1, K)
+            ox, oy, oz = (o[sel, :, a, None] for a in range(3))  # (A, R, 1)
+            dx, dy, dz = (d[sel, :, a, None] for a in range(3))
+            ozp = w[:, 8] * ox + w[:, 9] * oy + w[:, 10] * oz + w[:, 11]
+            dzp = w[:, 8] * dx + w[:, 9] * dy + w[:, 10] * dz
+            t = -ozp / dzp
+            u = ((w[:, 0] * ox + w[:, 1] * oy + w[:, 2] * oz + w[:, 3])
+                 + t * (w[:, 0] * dx + w[:, 1] * dy + w[:, 2] * dz))
+            v = ((w[:, 4] * ox + w[:, 5] * oy + w[:, 6] * oz + w[:, 7])
+                 + t * (w[:, 4] * dx + w[:, 5] * dy + w[:, 6] * dz))
+            ok = ((u >= 0) & (v >= 0) & (1.0 - u - v >= 0) & (t >= t_min)
+                  & (t < tm[sel, :, None]))
+            blocked[sel] |= ok.any(dim=2)
+    return blocked.reshape(-1)
+
+
+def anyhit_work_items(counts: torch.Tensor, chunk: int = ANYHIT_CHUNK):
+    """The any_hit kernel's work items: each tile's list positions
+    [0, count) cut into runs of ``chunk``.  Returns (tile id, first
+    position) as (W,) i32 each, W = sum(ceil(count / chunk)); reading W is
+    one host sync."""
+    chunks = (counts.long() + chunk - 1) // chunk
+    n_items = int(chunks.sum())
+    dev = counts.device
+    work_tile = torch.repeat_interleave(
+        torch.arange(counts.shape[0], device=dev), chunks, output_size=n_items)
+    first = torch.cumsum(chunks, 0) - chunks  # each tile's first item
+    start = (torch.arange(n_items, device=dev) - first[work_tile]) * chunk
+    return work_tile.to(torch.int32), start.to(torch.int32)
+
+
+def any_hit(origins, dirs, t_max, wrows, visit, ventry, counts,
+            tile_r: int, t_min=T_MIN):
+    """Whether some triangle of its tile's visit list lies in [t_min,
+    t_max) along each ray: the ``any_hit`` kernel for CUDA tensors, its
+    plain version for CPU tensors.  Rays with t_max <= t_min are never
+    blocked.  Returns blocked (N,) bool.
+
+    The kernel cuts each tile's list into work items of ``ANYHIT_CHUNK``
+    positions that run in parallel (occlusion is an OR over clusters, so
+    the result is the walk's); sizing the grid is one host sync."""
+    if origins.device.type == "cpu":
+        return any_hit_plain(origins, dirs, t_max, wrows, visit, ventry,
+                             counts, tile_r, t_min)
+    if not 1 <= tile_r <= ANYHIT_MAX_TILE_R:
+        raise ValueError(f"tile_r {tile_r} outside [1, {ANYHIT_MAX_TILE_R}]")
+    dev = origins.device
+    tiles, width = visit.shape
+    n = tiles * tile_r
+    c, _, k = wrows.shape
+    _check("origins", origins, torch.float32, (n, 3), dev)
+    _check("dirs", dirs, torch.float32, (n, 3), dev)
+    _check("t_max", t_max, torch.float32, (n,), dev)
+    _check("wrows", wrows, torch.float32, (c, 12, k), dev)
+    _check("visit", visit, torch.int32, (tiles, width), dev)
+    _check("ventry", ventry, torch.float32, (tiles, width), dev)
+    _check("counts", counts, torch.int32, (tiles,), dev)
+    blocked = torch.zeros((n,), dtype=torch.uint8, device=dev)
+    work_tile, work_start = anyhit_work_items(counts)
+    n_items = work_tile.shape[0]
+    if n_items:
+        lib = _lib()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.dxrt_any_hit(
+                origins.data_ptr(), dirs.data_ptr(), t_max.data_ptr(),
+                wrows.data_ptr(), visit.data_ptr(), ventry.data_ptr(),
+                counts.data_ptr(), work_tile.data_ptr(), work_start.data_ptr(),
+                blocked.data_ptr(), n_items, tile_r, width, k, t_min,
+                ANYHIT_CHUNK, stream)
+        _launched(lib, "any_hit", err)
+    return blocked.view(torch.bool)
+
+
+# ---------------------------------------------------------------------------
 # The fused query
 # ---------------------------------------------------------------------------
 
@@ -386,10 +620,12 @@ def pad_and_seed(origins, dirs, cs: ClusterSet, tile_r: int):
 
 
 def intersect_fused(origins, dirs, cs: ClusterSet, wrows, tile_r: int = TILE_R,
-                    plain: bool = False) -> Hit:
+                    plain: bool = False, srows=None) -> Hit:
     """Closest hit via binning + the per-tile cluster walk.
 
-    ``wrows`` is ``woop_rows(cs)``.  Returns a Hit with the exact t and
+    ``wrows`` is ``woop_rows(cs)`` and ``srows`` optionally
+    ``super_rows(cluster_rows(cs))`` (built on demand when the cluster count
+    calls for the superblock binner).  Returns a Hit with the exact t and
     slot (== triangle id: the geometry is treelet-ordered) and u = v = 0;
     ``ops.intersect.hit_record`` re-evaluates t/u/v and fetches the ids.
     ``plain=True`` runs the kernels' plain versions on any device (the
@@ -397,12 +633,11 @@ def intersect_fused(origins, dirs, cs: ClusterSet, wrows, tile_r: int = TILE_R,
     """
     if not cs.identity_order:
         raise ValueError("intersect_fused needs treelet-ordered clusters")
-    binner = bin_clusters_plain if plain else bin_clusters
     walker = closest_hit_plain if plain else closest_hit
     n = origins.shape[0]
     origins, dirs, t_init = pad_and_seed(origins, dirs, cs, tile_r)
-    entry, overlap = binner(tile_params(origins, dirs, tile_r),
-                            cluster_rows(cs))
+    entry, overlap = bin_clusters(tile_params(origins, dirs, tile_r),
+                                  cluster_rows(cs), srows, plain=plain)
     visit, ventry, counts = visit_lists(entry, overlap)
     best_t, best_slot = walker(origins, dirs, t_init, wrows, visit, ventry,
                                counts, tile_r)
@@ -411,3 +646,51 @@ def intersect_fused(origins, dirs, cs: ClusterSet, wrows, tile_r: int = TILE_R,
     zero = torch.zeros_like(best_t)
     return Hit(t=torch.where(hit, best_t, float("inf")), tri=best_slot,
                u=zero, v=zero)
+
+
+def pad_and_cap(origins, dirs, t_max, tile_r: int):
+    """Shadow rays padded to whole tiles with parked rays (origin 1e30,
+    dir 1, t_max 0: they bin nothing and are never blocked), and each
+    tile's binning cap ``max(t_max over the tile) * (1 + 2**-11) + 1e-7``
+    (pallas_intersect.py:1166-1191): a cluster entered past every ray's
+    t_max cannot occlude, and a fully disarmed tile bins nothing.  Returns
+    contiguous origins, dirs (M, 3), t_max (M,) and t_cap (M / tile_r,)."""
+    pad = (-origins.shape[0]) % tile_r
+    if pad:
+        origins = torch.cat([origins, origins.new_full((pad, 3), 1e30)])
+        dirs = torch.cat([dirs, dirs.new_ones((pad, 3))])
+        t_max = torch.cat([t_max, t_max.new_zeros((pad,))])
+    t_cap = t_max.reshape(-1, tile_r).amax(dim=1) * (1.0 + 2.0 ** -11) + 1e-7
+    return origins.contiguous(), dirs.contiguous(), t_max.contiguous(), t_cap
+
+
+def anyhit_schedule(origins, dirs, t_max, cs: ClusterSet, tile_r: int = TILE_R,
+                    plain: bool = False, srows=None):
+    """The any-hit walk's operands for a shadow batch: rays padded to whole
+    tiles (``pad_and_cap``), each tile bounded over its ARMED rays
+    (t_max > T_MIN) only and capped at its largest t_max, binned, and cut
+    into visit lists.  Returns (origins, dirs, t_max, visit, ventry,
+    counts).
+
+    Bounding over armed rays is exact (a disarmed ray is never blocked) and
+    matters: a Morton-sorted shadow batch has one tile per light where the
+    armed rays meet the parked tail (origin 1e30), whose all-lane box would
+    bin every cluster and leave one CTA walking them all."""
+    origins, dirs, t_max, t_cap = pad_and_cap(origins, dirs, t_max, tile_r)
+    entry, overlap = bin_clusters(
+        tile_params(origins, dirs, tile_r, t_cap=t_cap, live=t_max > T_MIN),
+        cluster_rows(cs), srows, plain=plain)
+    return (origins, dirs, t_max, *visit_lists(entry, overlap))
+
+
+def occluded_fused(origins, dirs, cs: ClusterSet, wrows, t_max,
+                   tile_r: int = TILE_R, plain: bool = False,
+                   srows=None) -> torch.Tensor:
+    """Any hit: (N,) bool, True where a triangle lies in [T_MIN, t_max[i])
+    along ray i: ``anyhit_schedule``, then the any-hit walk.  ``wrows``,
+    ``srows`` and ``plain`` as in ``intersect_fused``."""
+    o, d, tm, visit, ventry, counts = anyhit_schedule(
+        origins, dirs, t_max, cs, tile_r, plain, srows)
+    blocked = (any_hit_plain if plain else any_hit)(
+        o, d, tm, wrows, visit, ventry, counts, tile_r)
+    return blocked[:origins.shape[0]]

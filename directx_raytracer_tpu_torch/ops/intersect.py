@@ -2,7 +2,8 @@
 
 Counterpart of ``directx_raytracer_tpu/ops/intersect.py`` (``Hit``,
 ``intersect_block``, ``intersect_bruteforce``, ``hit_record``,
-``refine_hit``), as plain torch with the same float-op order.
+``refine_hit``, ``occluded_bruteforce``, ``moller_trumbore``), as plain
+torch with the same float-op order.
 
 Each triangle carries a precomputed Woop unit-triangle transform
 (models/scene.py), so testing R rays against T triangles is two dense f32
@@ -185,3 +186,45 @@ def refine_hit(origins, dirs, v0, e1, e2, hit: Hit) -> Hit:
         u=torch.where(ok, u, hit.u),
         v=torch.where(ok, v, hit.v),
     )
+
+
+def occluded_bruteforce(origins, dirs, woop, t_max, t_min=T_MIN,
+                        ray_block: int = 16384, tri_block: int = 512):
+    """Any-hit test: True where some triangle lies in (t_min, t_max[i]) —
+    the shadow-ray oracle the any-hit kernel is held to.
+
+    The blocked Woop-matmul formulation of ``intersect_bruteforce``,
+    folding a boolean OR instead of a running min.  ``dirs`` need not be
+    normalized if ``t_max`` is in the same parameterization.  Returns (N,)
+    bool.
+    """
+    n = origins.shape[0]
+    tri_block = min(tri_block, woop.shape[0])
+    woop = _pad_woop(woop, tri_block)
+    blocked = torch.zeros((n,), dtype=torch.bool, device=origins.device)
+    for r0 in range(0, n, ray_block):
+        o, d = origins[r0:r0 + ray_block], dirs[r0:r0 + ray_block]
+        tm = t_max[r0:r0 + ray_block, None]
+        b = blocked[r0:r0 + ray_block]
+        for base in range(0, woop.shape[0], tri_block):
+            tt, _, _, _ = intersect_block(o, d, woop[base:base + tri_block],
+                                          t_min, T_MAX)
+            b |= (tt < tm).any(dim=1)
+    return blocked
+
+
+def moller_trumbore(origin, direction, v0, e1, e2, t_min=T_MIN, t_max=T_MAX):
+    """Classic Möller-Trumbore of a ray against a triangle (vectors on the
+    last axis, batch axes broadcast); returns (t, u, v, hit).  An oracle
+    independent of the Woop formulation, for tests."""
+    p = torch.linalg.cross(direction, e2, dim=-1)
+    det = (e1 * p).sum(-1)
+    inv_det = torch.where(det != 0, 1.0 / det, 0.0)
+    s = origin - v0
+    u = (s * p).sum(-1) * inv_det
+    q = torch.linalg.cross(s, e1, dim=-1)
+    v = (direction * q).sum(-1) * inv_det
+    t = (e2 * q).sum(-1) * inv_det
+    hit = ((det != 0) & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > t_min)
+           & (t < t_max))
+    return t, u, v, hit

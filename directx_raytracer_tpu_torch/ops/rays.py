@@ -2,9 +2,9 @@
 
 Counterpart of ``directx_raytracer_tpu/ops/rays.py`` (``T_MIN``/``T_MAX``,
 ``pick_schedule``, ``pick_tile``, ``generate_rays_tiled``,
-``generate_rays``), with the same float-op order.  The sub-pixel offset and
-the row-band arguments of the JAX functions serve supersampling and
-multi-device rendering and come with those slices.
+``generate_rays``, ``RGSS_OFFSETS``), with the same float-op order.  The
+row-band arguments of the JAX functions serve multi-device rendering and
+come with that slice.
 
 Reproduces HLSL/ray_tracing_shaders.hlsl:21-70, vectorized over the whole
 pixel grid:
@@ -80,16 +80,24 @@ def _camera(position, rotation, device):
     return pos, rot
 
 
+def _offset(offset, device):
+    """The sub-pixel offset as f32, rounded as the JAX package rounds it."""
+    return torch.as_tensor(offset, dtype=torch.float32).to(device)
+
+
 def generate_rays_tiled(position, rotation, width: int, height: int,
-                        tile_h: int, tile_w: int, device="cpu"):
+                        tile_h: int, tile_w: int, offset=(0.5, 0.5),
+                        device="cpu"):
     """Primary rays in TILE-MAJOR order, computed arithmetically.
 
     Pixel (px, py) lands at flat index
     ((ty*tiles_x + tx) * tile_h + ry) * tile_w + rx, so each run of
-    tile_h*tile_w rays is one pixel tile.  Returns origins, dirs (N, 3) f32
-    on ``device``.
+    tile_h*tile_w rays is one pixel tile.  ``offset`` is the sub-pixel
+    sample position, (0.5, 0.5) the pixel center.  Returns origins, dirs
+    (N, 3) f32 on ``device``.
     """
     pos, rot = _camera(position, rotation, device)
+    off = _offset(offset, device)
     ty_n, tx_n = height // tile_h, width // tile_w
     n = ty_n * tx_n * tile_h * tile_w
 
@@ -103,23 +111,31 @@ def generate_rays_tiled(position, rotation, width: int, height: int,
     px = (tx * tile_w + rx).to(torch.float32)
     py = (ty * tile_h + ry).to(torch.float32)
 
-    x = (2.0 * ((px + 0.5) / width) - 1.0) * (width / height)
-    y = 1.0 - 2.0 * ((py + 0.5) / height)
+    x = (2.0 * ((px + off[0]) / width) - 1.0) * (width / height)
+    y = 1.0 - 2.0 * ((py + off[1]) / height)
     dirs = _world_dirs(x, y, rot)
     origins = pos.expand(n, 3).contiguous()
     return origins, dirs
 
 
-def generate_rays(position, rotation, width: int, height: int, device="cpu"):
+# 4x rotated-grid supersampling offsets (BASELINE config 4); spp=1 uses the
+# reference's pixel-center +0.5 (hlsl:35-36).
+RGSS_OFFSETS = ((0.375, 0.125), (0.875, 0.375), (0.125, 0.625), (0.625, 0.875))
+
+
+def generate_rays(position, rotation, width: int, height: int,
+                  offset=(0.5, 0.5), device="cpu"):
     """Primary rays for every pixel, in row-major pixel order (pixel
-    (px, py) at index py*width + px, the reference's UAV layout).
-    Returns origins, dirs (H*W, 3) f32 on ``device``."""
+    (px, py) at index py*width + px, the reference's UAV layout), sampled
+    at sub-pixel ``offset``.  Returns origins, dirs (H*W, 3) f32 on
+    ``device``."""
     pos, rot = _camera(position, rotation, device)
+    off = _offset(offset, device)
     px = torch.arange(width, dtype=torch.float32, device=device)[None, :]
     py = torch.arange(height, dtype=torch.float32, device=device)[:, None]
 
-    x = (px + 0.5) / width
-    y = (py + 0.5) / height
+    x = (px + off[0]) / width
+    y = (py + off[1]) / height
     x = 2.0 * x - 1.0
     y = 1.0 - 2.0 * y
     x = x * (width / height)

@@ -1,7 +1,8 @@
 """Renderers: counterpart of ``directx_raytracer_tpu/render/__init__.py``
-(the debug renderer; Whitted comes with its slice)."""
+(the debug and Whitted renderers; the path tracer comes with its slice)."""
 
 from .debug import render_debug, untile
 from .renderer import Renderer
+from .whitted import render_whitted
 
-__all__ = ["Renderer", "render_debug", "untile"]
+__all__ = ["Renderer", "render_debug", "render_whitted", "untile"]

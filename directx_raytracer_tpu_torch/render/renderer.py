@@ -2,19 +2,20 @@
 
 Counterpart of ``directx_raytracer_tpu/render/renderer.py``
 (``describe_devices``, ``FrameStats``, ``Renderer.__init__``,
-``Renderer.render_frame``); the Whitted and path-tracing frames come with
-their slices.  The reference's renderer owns device setup, geometry
-upload, acceleration-structure build and the per-frame dispatch; here:
+``Renderer.render_frame``, ``Renderer.render_whitted_frame``,
+``Renderer.to_u8_device``); the path-tracing frame comes with its slice.
+The reference's renderer owns device setup, geometry upload,
+acceleration-structure build and the per-frame dispatch; here:
 
 * device selection      -> the ``device`` argument (``describe_devices``)
 * geometry upload       -> build_device_scene (one-time SoA flatten + copy)
 * BLAS/TLAS build       -> bvh.build_bvh (treelet clusters + Woop rows)
 * camera/debug CBs      -> (position, rotation) snapshot + mode int
-* DispatchRays          -> render_frame()
+* DispatchRays          -> render_frame() / render_whitted_frame()
 
-Intersection: the BVH path (binning + closest-hit kernels on a CUDA
-device, their plain versions on the CPU) above ``BRUTE_FORCE_MAX_TRIS``
-triangle slots, brute force below it.
+Intersection and shadow rays: the BVH path (binning, closest-hit and
+any-hit kernels on a CUDA device, their plain versions on the CPU) above
+``BRUTE_FORCE_MAX_TRIS`` triangle slots, brute force below it.
 """
 
 from __future__ import annotations
@@ -24,9 +25,10 @@ import time
 
 import torch
 
-from ..bvh import build_bvh, make_bvh_intersect_fn
+from ..bvh import build_bvh, make_bvh_intersect_fn, make_bvh_occluder_factory
 from ..models.scene import Scene, build_device_scene
 from .debug import render_debug
+from .whitted import render_whitted
 
 log = logging.getLogger("directx_raytracer_tpu_torch")
 
@@ -90,9 +92,11 @@ class Renderer:
                      self.bvh.clusters.aabb_min.shape[0],
                      time.perf_counter() - t0, self.device)
             self.intersect_fn = make_bvh_intersect_fn(self.bvh)
+            self.occluder_factory = make_bvh_occluder_factory(self.bvh)
         else:
             self.bvh = None
             self.intersect_fn = None
+            self.occluder_factory = None
             log.info("brute-force intersection (%d tris)", n_tris)
         self.stats = FrameStats()
 
@@ -109,3 +113,22 @@ class Renderer:
                            fetch_record=(mode <= 3))
         self.stats.tick(self.width * self.height)
         return img
+
+    def render_whitted_frame(self, max_depth: int = 5, spp: int = 1):
+        """One Whitted frame (the capability surface the reference parses
+        but never executes — materials, lights, shadows, specular): an
+        (H, W, 3) f32 tensor on the renderer's device, and the per-pass
+        alive/dropped stats."""
+        pos, rot = self.camera.snapshot()
+        img, stats = render_whitted(
+            self.dscene, pos, rot, self.width, self.height,
+            max_depth=max_depth, spp=spp, intersect_fn=self.intersect_fn,
+            occluder_factory=self.occluder_factory)
+        self.stats.tick(self.width * self.height * spp)
+        return img, stats
+
+    @staticmethod
+    def to_u8_device(img: torch.Tensor) -> torch.Tensor:
+        """UNORM u8 conversion on the image's device (the rounding of
+        utils.image.to_u8), without a host copy."""
+        return (img.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)

@@ -1,9 +1,9 @@
-"""Vector / matrix math conventions of the CRT scene core, as numpy ops.
+"""Vector / matrix math conventions of the CRT scene core.
 
 Counterpart of ``directx_raytracer_tpu/utils/vecmath.py``: its host-side
 numpy helpers (``vec3``, ``np_normalize``, ``allclose_crt``, ``rot_x/y/z``,
-``row_vec_mul``) copied unchanged.  The device-side ``normalize``/``dot``/
-``cross`` helpers there serve the Whitted shader and come with that slice.
+``row_vec_mul``) copied unchanged, and the device-side ``normalize`` the
+Whitted shader uses, on torch tensors.
 
 The reference implements a tiny 3-float vector (`CRTVector`) and a 3x3
 row-major matrix (`CRTMatrix`) with two multiplication conventions:
@@ -26,6 +26,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 EPSILON = 1e-6  # CRTVector operator== tolerance (CRTVector.cpp:78)
 DEG2RAD = math.pi / 180.0
@@ -34,6 +35,15 @@ DEG2RAD = math.pi / 180.0
 def vec3(x, y, z, dtype=np.float32):
     """Host-side 3-vector (numpy, f32 to match the C++ float math)."""
     return np.array([x, y, z], dtype=dtype)
+
+
+def normalize(v: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
+    """Unit-length v along ``dim``; matches CRTVector::normalise (divide by
+    the exact length, no epsilon guard) unless ``eps`` is given."""
+    n = torch.sqrt((v * v).sum(dim=dim, keepdim=True))
+    if eps:
+        n = n.clamp(min=eps)
+    return v / n
 
 
 def np_normalize(v):

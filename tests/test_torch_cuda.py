@@ -5,12 +5,15 @@ imports no JAX, so it runs on a GPU host without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: ``bin_clusters`` evaluates the plain version's ops in the same
-order with IEEE divides, so it must agree exactly.  ``closest_hit``
-contracts a*b+c into FMAs where the plain version rounds twice, so t may
-differ by ulps and a hit exactly on an edge may flip: hit/miss agreement
->= 99.9%, same winner >= 99%, t within 1e-5 relative on >= 99.9% of
-common hits.
+Tolerances: the binning kernels (dense and superblock) evaluate the plain
+version's ops in the same order with IEEE divides, so they must agree
+exactly.  ``closest_hit`` contracts a*b+c into FMAs where the plain version
+rounds twice, so t may differ by ulps and a hit exactly on an edge may
+flip: hit/miss agreement >= 99.9%, same winner >= 99%, t within 1e-5
+relative on >= 99.9% of common hits.  ``any_hit`` contracts the same way:
+blocked flags agree on >= 99.9% of rays (the reference's occlusion gate).
+Whitted frames: within 2 u8 levels on >= 99% of pixels, alive per pass
+within 0.1% of the pixel count.
 """
 
 import pytest
@@ -21,8 +24,10 @@ from directx_raytracer_tpu_torch.bvh import TILE_R, build_bvh, intersect_fused
 from directx_raytracer_tpu_torch.bvh import cuda_intersect as ci
 from directx_raytracer_tpu_torch.models.scene import build_device_scene
 from directx_raytracer_tpu_torch.ops.rays import generate_rays_tiled, pick_schedule
+from directx_raytracer_tpu_torch.ops.intersect import occluded_bruteforce
 from directx_raytracer_tpu_torch.render.debug import render_debug
 from directx_raytracer_tpu_torch.render.renderer import Renderer
+from directx_raytracer_tpu_torch.render.whitted import render_whitted
 from directx_raytracer_tpu_torch.utils.image import to_u8
 
 pytestmark = pytest.mark.gpu
@@ -110,7 +115,8 @@ def test_frame_matches_plain(cuda):
     r = Renderer(testscenes.bench_scene(3_000, W, H), W, H, device=cuda)
     before = dict(ci.LAUNCHES)
     img = r.render_frame(5)
-    assert all(ci.LAUNCHES[k] > before[k] for k in before)
+    assert all(ci.LAUNCHES[k] > before[k] for k in ("bin_clusters",
+                                                    "closest_hit"))
 
     def plain_fn(o, d, geo, tile_r=None):
         return intersect_fused(o, d, r.bvh.clusters, r.bvh.wrows,
@@ -121,3 +127,89 @@ def test_frame_matches_plain(cuda):
                        fetch_record=False)
     diff = (to_u8(img).astype(int) - to_u8(ref).astype(int))
     assert ((abs(diff) <= 2).all(axis=-1)).mean() >= 0.99
+
+
+def shadow_batch(x, light=(9.0, 7.0, 0.0)):
+    """Shadow rays from the primary hit points toward one light: t_max is
+    the distance less twice the bias, 0 (disarmed) for misses."""
+    n = x["o"].shape[0]
+    hit = intersect_fused(x["o"], x["d"], x["bvh"].clusters, x["bvh"].wrows,
+                          x["tile_r"], plain=True)
+    p = x["o"] + x["d"] * torch.where(hit.mask, hit.t, 0.0)[:, None]
+    to_l = torch.tensor(light, device=p.device) - p
+    dist = to_l.norm(dim=1)
+    d = to_l / dist[:, None]
+    o = p + d * 1e-3
+    t_max = torch.where(hit.mask, dist - 2e-3, 0.0)
+    assert n == t_max.shape[0] and hit.mask.sum() > 100
+    return o.contiguous(), d.contiguous(), t_max
+
+
+def test_any_hit_kernel_matches_plain(x):
+    o, d, t_max, *lists = ci.anyhit_schedule(*shadow_batch(x),
+                                             x["bvh"].clusters)
+    args = (o, d, t_max, x["bvh"].wrows, *lists, TILE_R)
+    before = ci.LAUNCHES["any_hit"]
+    got = ci.any_hit(*args)
+    assert ci.LAUNCHES["any_hit"] == before + 1
+    want = ci.any_hit_plain(*args)
+    torch.cuda.synchronize()
+    assert (got == want).float().mean() >= 0.999
+    assert want.any() and (~want).any()
+    brute = occluded_bruteforce(o, d, x["bvh"].clusters.woop.reshape(-1, 3, 4),
+                                t_max)
+    assert (got == brute).float().mean() >= 0.999
+
+
+def test_occluded_fused_kernels_match_plain(x):
+    o, d, t_max = shadow_batch(x)
+    args = (o, d, x["bvh"].clusters, x["bvh"].wrows, t_max)
+    got = ci.occluded_fused(*args)
+    want = ci.occluded_fused(*args, plain=True)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == t_max.shape
+    assert (got == want).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("block", [32, 8])
+def test_super_kernel_matches_dense_and_plain(x, block):
+    sb = ci.super_rows(x["cb"], block)
+    before = ci.LAUNCHES["bin_clusters_super"]
+    entry, overlap = ci.bin_clusters_super(x["tp"], x["cb"], sb, block)
+    assert ci.LAUNCHES["bin_clusters_super"] == before + 1
+    e_p, o_p = ci.bin_clusters_super_plain(x["tp"], x["cb"], sb, block)
+    e_d, o_d = ci.bin_clusters_dense(x["tp"], x["cb"])
+    torch.cuda.synchronize()
+    assert torch.equal(overlap, o_p) and torch.equal(entry, e_p)
+    assert torch.equal(overlap, o_d)
+    assert torch.equal(entry[o_d], e_d[o_d])
+
+
+def test_whitted_frame_matches_plain(cuda):
+    """A depth-3 Whitted frame through the Renderer (kernels) vs the same
+    frame through the plain versions on the card."""
+    r = Renderer(testscenes.bench_scene(3_000, W, H), W, H, device=cuda)
+    before = dict(ci.LAUNCHES)
+    img, stats = r.render_whitted_frame(max_depth=3)
+    for name in ("bin_clusters", "closest_hit", "any_hit"):
+        assert ci.LAUNCHES[name] > before[name], name
+
+    def plain_isect(o, d, geo, tile_r=None):
+        return intersect_fused(o, d, r.bvh.clusters, r.bvh.wrows,
+                               tile_r or TILE_R, plain=True)
+
+    def plain_occ(geo):
+        def occluded(o, d, t_max):
+            return ci.occluded_fused(o, d, r.bvh.clusters, r.bvh.wrows, t_max,
+                                     plain=True)
+        return occluded
+
+    pos, rot = r.camera.snapshot()
+    ref, ref_stats = render_whitted(r.dscene, pos, rot, W, H, max_depth=3,
+                                    intersect_fn=plain_isect,
+                                    occluder_factory=plain_occ)
+    assert torch.isfinite(img).all()
+    diff = (to_u8(img).astype(int) - to_u8(ref).astype(int))
+    assert ((abs(diff) <= 2).all(axis=-1)).mean() >= 0.99
+    assert (stats["alive"] - ref_stats["alive"]).abs().max() <= 0.001 * W * H
+    assert stats["alive"][0] > 0

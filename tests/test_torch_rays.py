@@ -72,3 +72,18 @@ def test_untile_matches_jax(tile):
     got = untile(torch.from_numpy(flat), w, h, tile).numpy()
     want = np.asarray(j_untile(jnp.asarray(flat), w, h, tile))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("offset", [(0.375, 0.125), (1.0 / 6.0, 0.5 + 1.0 / 6.0),
+                                    (0.0, 1.0)])
+def test_offsets_match_jax(offset):
+    """Sub-pixel offsets (RGSS and Hammersley samples) in both raygens."""
+    pos, rot = cameras()["bench"].snapshot()
+    w, h = 96, 48
+    o, d = prays.generate_rays(pos, rot, w, h, offset)
+    jo, jd = jrays.generate_rays(pos, rot, w, h, offset)
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=ATOL, rtol=0)
+    o, d = prays.generate_rays_tiled(pos, rot, w, h, 24, 32, offset)
+    jo, jd = jrays.generate_rays_tiled(pos, rot, w, h, 24, 32, offset)
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=ATOL, rtol=0)
+    assert prays.RGSS_OFFSETS == jrays.RGSS_OFFSETS
