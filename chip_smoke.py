@@ -9,8 +9,9 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions; no
    CUDA device is a failure — nothing falls back to the CPU;
-2. build the four CUDA kernels from csrc/ (one nvcc call, seconds and the
-   build log printed);
+2. build the five CUDA kernels' sources in csrc/ (one nvcc per source,
+   all started together, then one link; seconds and the build log
+   printed);
 3. bin_clusters and closest_hit against their plain torch versions on the
    card, at the shapes the main path gives them, on bench_scene(3_000) at
    96x48 and bench_scene(100_000) at 1920x1080;
@@ -32,7 +33,19 @@ Phases, each of which raises (exit code != 0) on failure:
    kernel at bench_scene(1_000_000) 1080p shapes, then
    Renderer(bench_scene(1_000_000), 1920, 1080,
    device="cuda").render_frame(5) with counters (bin_clusters_super must
-   launch), checked against the plain-version frame and timed.
+   launch), checked against the plain-version frame and timed;
+8. the precision micro: its entry point (tools.precision_micro.main, the
+   kernel's three variants at the tool's shapes, S = 2048 steps) with its
+   counters reset just before and read just after (every variant must
+   launch), then each variant's kernel against its plain version on the
+   same seeded inputs, both timed as runs of calls back to back.
+
+Each kernel's line in the kernels JSON also carries its bound (the least
+time the card could take for the same work: bytes over the memory rate or
+operations over the peak rate, whichever is larger, computed from this
+run's inputs; for closest_hit and any_hit from the pairs their plain walks
+visit) and library_ms: null, since no single PyTorch call computes any of
+these functions.
 
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {...}}.
@@ -60,6 +73,7 @@ from directx_raytracer_tpu_torch.ops.rays import generate_rays_tiled, pick_sched
 from directx_raytracer_tpu_torch.render.debug import render_debug
 from directx_raytracer_tpu_torch.render.renderer import Renderer
 from directx_raytracer_tpu_torch.render.whitted import render_whitted
+from directx_raytracer_tpu_torch.tools import precision_micro as pm
 from directx_raytracer_tpu_torch.utils.image import to_u8, write_png
 
 BIG_SCENE = (100_000, 1920, 1080)
@@ -102,6 +116,50 @@ BLOCKED_AGREE = 0.999
 #   alive rays per pass within 0.1% of the pixel count (a flipped hit or
 #   shadow verdict moves at most a few bounce rays).
 ALIVE_SHARE = 0.001
+# * precision_micro: the kernel and the plain version sum the depth-8
+#   products in different orders (the tensor cores in their own), and the
+#   tail's cancellation (t = -mm[2K+k] / mm[5K+k] near the 1e-3 threshold)
+#   amplifies that: two f32 summation orders of the fold at S = 2048 put
+#   the winning t up to 1.3e-4 apart (the plain version against exactly
+#   rounded products, on the CPU).  Sentinel sets must be equal and
+#   each ray's min t within 1e-3 relative (the repository's t gate,
+#   bench.py:156-164) on >= 99.5% of rays: one ray in 256 may take another
+#   winner when a candidate sits on the threshold.
+FOLD_RTOL = 1e-3
+FOLD_AGREE = 0.995
+
+# The least time the card could take (NVIDIA's data-sheet rates of an
+# H100 SXM at its 700 W limit, dense): bytes over the memory rate,
+# operations over the f32 rate of the CUDA cores (a multiply-add counts
+# two) or the bf16 rate of the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+# f32 operations per unit of work, counted from the kernels' sources:
+# * one slab test of a (tile, box) pair (bin_clusters.cu ``slab``): per
+#   axis 2 subtracts, 3 for the sign test, 2 divides with their selects, 4
+#   multiplies, 8 clips and 8 min/max; then 6 for t_min, the overlap
+#   compares and the divide by len_hi;
+SLAB_OPS = 93
+# * one (ray, triangle) Woop test (closest_hit.cu, any_hit.cu): 17
+#   multiply-adds and 3 multiplies, a negate and a divide, 2 subtracts and
+#   5 compares;
+PAIR_TEST_OPS = 46
+# * one candidate of the precision micro's tail (precision_micro.cu).
+FOLD_TAIL_OPS = 14
+
+
+def bound(nbytes: float, f32_ops: float, bf16_ops: float = 0.0):
+    """(bound_ms, bound_by): the larger of the bytes' time and the
+    operations' time.  CUDA-core f32 and tensor-core bf16 work run on
+    separate units, so the operations' time is the larger of the two."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(f32_ops / F32_OPS_PER_S, bf16_ops / BF16_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def card_line() -> str:
@@ -169,7 +227,8 @@ def check_closest(x, e_p, o_p, label):
     args = (x["o"], x["d"], x["t_init"], x["wrows"], visit, ventry, counts,
             x["tile_r"])
     bt_k, bs_k = ci.closest_hit(*args)
-    bt_p, bs_p = ci.closest_hit_plain(*args)
+    work = {}
+    bt_p, bs_p = ci.closest_hit_plain(*args, stats=work)
     torch.cuda.synchronize()
     hk, hp = bs_k >= 0, bs_p >= 0
     hit_agree = (hk == hp).float().mean().item()
@@ -183,11 +242,15 @@ def check_closest(x, e_p, o_p, label):
     print(f"[{label}] closest_hit: {counts.shape[0]} tiles x {x['tile_r']} "
           f"rays, list length {visit.shape[1]}, {int(hp.sum())} hits; "
           f"hit/miss agreement {hit_agree:.6f}, winner agreement "
-          f"{winner:.6f}, t within {T_RTOL:g} rel on {t_share:.6f}")
+          f"{winner:.6f}, t within {T_RTOL:g} rel on {t_share:.6f}; the "
+          f"walk visits {work['visits']} of {int(counts.sum())} binned pairs, "
+          f"{work['tests']} (ray, triangle) tests")
     require(hit_agree >= HIT_AGREE, f"closest_hit hit/miss agreement {hit_agree}")
     require(winner >= WINNER_AGREE, f"closest_hit winner agreement {winner}")
     require(t_share >= T_RTOL_SHARE, f"closest_hit t agreement {t_share}")
-    return args, max_abs
+    n = x["o"].shape[0]
+    walk_bound = bound(nbytes(*args[:7]) + 8 * n, work["tests"] * PAIR_TEST_OPS)
+    return args, max_abs, walk_bound
 
 
 def kernels_vs_plain(device):
@@ -198,18 +261,23 @@ def kernels_vs_plain(device):
                                            ("100k 1080p", BIG_SCENE)):
         x = kernel_inputs(n_tris, width, height, device)
         e_p, o_p, bin_err = check_bin(x, label)
-        args, hit_err = check_closest(x, e_p, o_p, label)
+        args, hit_err, walk_bound = check_closest(x, e_p, o_p, label)
         if (n_tris, width, height) != BIG_SCENE:
             continue
+        tiles, c = e_p.shape
+        bin_bound = bound(nbytes(x["tp"], x["cb"]) + 5 * tiles * c,
+                          tiles * c * SLAB_OPS)
         records["bin_clusters"] = dict(
             max_abs_err=bin_err,
             ms=time_ms(lambda: ci.bin_clusters(x["tp"], x["cb"]), KERNEL_REPS),
             plain_ms=time_ms(lambda: ci.bin_clusters_plain(x["tp"], x["cb"]),
-                             PLAIN_REPS))
+                             PLAIN_REPS),
+            bound_ms=bin_bound[0], bound_by=bin_bound[1], library_ms=None)
         records["closest_hit"] = dict(
             max_abs_err=hit_err,
             ms=time_ms(lambda: ci.closest_hit(*args), KERNEL_REPS),
-            plain_ms=time_ms(lambda: ci.closest_hit_plain(*args), PLAIN_REPS))
+            plain_ms=time_ms(lambda: ci.closest_hit_plain(*args), PLAIN_REPS),
+            bound_ms=walk_bound[0], bound_by=walk_bound[1], library_ms=None)
     return records
 
 
@@ -297,17 +365,26 @@ def any_hit_args(o, d, t_max, bvh):
 
 
 def check_any_hit(args, label):
+    """Kernel vs plain version on one shadow batch.  Returns the largest
+    flag difference and the kernel's bound for this batch."""
     b_k = ci.any_hit(*args)
-    b_p = ci.any_hit_plain(*args)
+    work = {}
+    b_p = ci.any_hit_plain(*args, stats=work)
     torch.cuda.synchronize()
     agree = (b_k == b_p).float().mean().item()
     armed = int((args[2] > 0).sum())
-    print(f"[{label}] any_hit: {args[6].shape[0]} tiles x {args[-1]} rays "
+    counts = args[6]
+    print(f"[{label}] any_hit: {counts.shape[0]} tiles x {args[-1]} rays "
           f"({armed} armed), list length {args[4].shape[1]}, "
-          f"{int(b_p.sum())} blocked; blocked agreement {agree:.6f}")
+          f"{int(b_p.sum())} blocked; blocked agreement {agree:.6f}; the "
+          f"walk visits {work['visits']} of {int(counts.sum())} binned pairs, "
+          f"{work['tests']} (ray, triangle) tests")
     require(agree >= BLOCKED_AGREE, f"any_hit blocked agreement {agree}")
     require(int(b_p.sum()) > 0, "the shadow batch blocks no ray")
-    return float((b_k != b_p).any())
+    items = ci.anyhit_work_items(counts)
+    walk_bound = bound(nbytes(*args[:7], *items) + b_k.numel(),
+                       work["tests"] * PAIR_TEST_OPS)
+    return float((b_k != b_p).any()), walk_bound
 
 
 def small_shadow_batch(device):
@@ -351,11 +428,13 @@ def whitted_path(r, card):
     require(o.shape == (r.dscene.lights.n_lights * width * height, 3),
             f"primary shadow batch shape {tuple(o.shape)}")
     args = any_hit_args(o, d, t_max, r.bvh)
-    err = check_any_hit(args, "100k 1080p primary shadow batch")
+    err, walk_bound = check_any_hit(args, "100k 1080p primary shadow batch")
     record = dict(max_abs_err=err,
                   ms=time_ms(lambda: ci.any_hit(*args), KERNEL_REPS),
                   plain_ms=time_ms(lambda: ci.any_hit_plain(*args), PLAIN_REPS,
-                                   warmup=1))
+                                   warmup=1),
+                  bound_ms=walk_bound[0], bound_by=walk_bound[1],
+                  library_ms=None)
     del captured, args
 
     ci.reset_launch_counts()
@@ -431,16 +510,28 @@ def huge_path(device, card):
     require(torch.equal(o_k, o_d) and torch.equal(e_k[o_d], e_d[o_d]),
             "bin_clusters_super differs from the dense kernel")
     both = o_k & o_p
+    # The slab tests it needs: every hull, then every cluster of the
+    # superblocks each tile overlaps.
+    _, s_ovl = ci.bin_clusters_plain(tp, sb)
+    sizes = torch.full((sb.shape[1],), float(ci.SUPER_BLOCK), device=device)
+    sizes[-1] = c - ci.SUPER_BLOCK * (sb.shape[1] - 1)
+    tests = s_ovl.numel() + int((s_ovl.float() @ sizes).sum())
+    tiles = tp.shape[0]
+    super_bound = bound(nbytes(tp, cb, sb) + 5 * tiles * c, tests * SLAB_OPS)
+    print(f"[1M 1080p] bin_clusters_super: {tests} slab tests "
+          f"({s_ovl.numel()} hulls), bound {super_bound[0]:.4f} ms "
+          f"({super_bound[1]})")
     record = dict(
         max_abs_err=float((e_k[both] - e_p[both]).abs().max()) if both.any() else 0.0,
         ms=time_ms(lambda: ci.bin_clusters_super(tp, cb, sb), KERNEL_REPS),
         plain_ms=time_ms(lambda: ci.bin_clusters_super_plain(tp, cb, sb),
-                         PLAIN_REPS))
+                         PLAIN_REPS),
+        bound_ms=super_bound[0], bound_by=super_bound[1], library_ms=None)
     dense_ms = time_ms(lambda: ci.bin_clusters_dense(tp, cb), KERNEL_REPS)
     print(f"bin_clusters_super at 1M 1080p shapes: kernel {record['ms']:.4f} ms, "
           f"dense kernel {dense_ms:.4f} ms, plain {record['plain_ms']:.4f} ms "
           f"(medians, CUDA events) [{card}]")
-    del e_k, o_k, e_p, o_p, e_d, o_d, both
+    del e_k, o_k, e_p, o_p, e_d, o_d, both, s_ovl
 
     ci.reset_launch_counts()
     img = r.render_frame(5)
@@ -465,6 +556,62 @@ def huge_path(device, card):
           f"{frame_ms:.4f} ms median of {HUGE_REPS}, "
           f"{width * height / frame_ms / 1e3:.2f} Mrays/s [{card}]")
     return record, launches
+
+
+def precision_path(device, card):
+    """Phase 8: the precision micro at the tool's own shapes."""
+    pm.reset_launch_counts()
+    require(pm.main([]) == 0, "the precision micro's entry point failed")
+    torch.cuda.synchronize()
+    launches = dict(pm.LAUNCHES)
+    print(f"precision micro launches: {launches}")
+    for variant in pm.VARIANTS:
+        require(launches[variant] > 0,
+                f"precision_micro ({variant}) was not launched by its tool")
+
+    w, rays = pm.make_inputs(pm.STEPS, device)
+    candidates = w.shape[0] * pm.K * pm.R
+    product = 2 * 8 * 6 * candidates
+    tail = candidates * FOLD_TAIL_OPS
+    moved = nbytes(w, rays) + 4 * pm.R
+    bounds = {"highest": bound(moved, product + tail),
+              "default": bound(moved, tail, product),
+              "split3": bound(moved, tail, 3 * product)}
+    records = {}
+    for variant in pm.VARIANTS:
+        got = pm.min_t(pm.precision_fold(variant, w, rays))
+        want = pm.min_t(pm.precision_fold_plain(variant, w, rays))
+        torch.cuda.synchronize()
+        hit = torch.isfinite(want)
+        same_miss = torch.equal(torch.isinf(got), ~hit)
+        agree = pm.agreement(got, want, FOLD_RTOL)
+        diff = (got[hit] - want[hit]).abs()
+        rel = (diff / want[hit]).max().item() if hit.any() else 0.0
+        print(f"[precision micro S={w.shape[0]}] {variant}: {int(hit.sum())} "
+              f"of {pm.R} rays hit, same misses {same_miss}, min t within "
+              f"{FOLD_RTOL:g} rel on {agree:.6f} (within 1e-4 on "
+              f"{pm.agreement(got, want, 1e-4):.6f}), max rel err {rel:.3e}")
+        require(same_miss, f"precision_micro ({variant}) sentinel sets differ")
+        require(agree >= FOLD_AGREE,
+                f"precision_micro ({variant}) t agreement {agree}")
+        # A launch takes ~0.1 ms, about what the host needs to enqueue one,
+        # so both are timed as runs of calls back to back (ms per call).
+        ms = pm.time_launches(lambda: pm.precision_fold(variant, w, rays),
+                              KERNEL_REPS, device)
+        plain_ms = pm.time_launches(
+            lambda: pm.precision_fold_plain(variant, w, rays), PLAIN_REPS,
+            device)
+        bound_ms, bound_by = bounds[variant]
+        print(f"precision_micro {variant} at S={w.shape[0]}: kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms (CUDA events around "
+              f"{KERNEL_REPS} and {PLAIN_REPS} calls back to back), bound "
+              f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
+        records[variant] = dict(
+            launches=launches[variant],
+            max_abs_err=diff.max().item() if hit.any() else 0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None)
+    return records
 
 
 def main() -> int:
@@ -505,17 +652,29 @@ def main() -> int:
     del r
     torch.cuda.empty_cache()
     records["bin_clusters_super"], huge_launches = huge_path(device, card)
+    torch.cuda.empty_cache()
+    variants = precision_path(device, card)
 
     # Each kernel's launches are read from the path it serves: the debug
     # path (bin_clusters, closest_hit), the Whitted path (any_hit) and the
     # 1M path (bin_clusters_super).
     launches["any_hit"] = whitted_launches["any_hit"]
     launches["bin_clusters_super"] = huge_launches["bin_clusters_super"]
+    # The precision micro's line carries its highest variant (full f32, the
+    # production fold's precision) and every variant under "variants";
+    # its launches are those of its tool's run.
+    launches["precision_micro"] = sum(v["launches"] for v in variants.values())
+    records["precision_micro"] = {
+        **{key: val for key, val in variants["highest"].items()
+           if key != "launches"},
+        "variants": variants}
     tpu = "directx_raytracer_tpu/bvh/pallas_intersect.py"
     sources = {"bin_clusters": ("csrc/bin_clusters.cu", f"{tpu}:307"),
                "closest_hit": ("csrc/closest_hit.cu", f"{tpu}:762"),
                "any_hit": ("csrc/any_hit.cu", f"{tpu}:1001"),
-               "bin_clusters_super": ("csrc/bin_clusters.cu", f"{tpu}:367")}
+               "bin_clusters_super": ("csrc/bin_clusters.cu", f"{tpu}:367"),
+               "precision_micro": ("csrc/precision_micro.cu",
+                                   "tools/precision_micro.py:32")}
     kernels = []
     for name, (src, replaces) in sources.items():
         kernels.append(dict(name=name, route="cuda",

@@ -88,7 +88,7 @@ def build_clusters(geometry: Geometry, k: int = 128) -> ClusterSet:
     )
 
 
-def clusters_from_numpy(fields: dict, device="cpu") -> ClusterSet:
+def clusters_from_numpy(fields: dict, device="cuda") -> ClusterSet:
     """A ClusterSet from the JAX package's ClusterSet leaves, handed over
     as numpy arrays (and Python scalars for ``n_tris``/``k``/
     ``identity_order``) keyed by the JAX field names.  Arrays keep their

@@ -37,7 +37,9 @@ tensors on the CPU; for CUDA tensors it launches its kernel or raises.
 
 The kernels are compiled with nvcc on first use, from the sources in
 ``csrc/``, into ``_build/`` next to this package, and bound with ctypes.
-Each launch is counted in ``LAUNCHES``.
+Each launch is counted in ``LAUNCHES``.  The same library carries the
+precision micro's kernel (``tools/precision_micro.py`` of this package
+wraps and counts it).
 """
 
 from __future__ import annotations
@@ -84,7 +86,8 @@ def reset_launch_counts() -> None:
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("bin_clusters.cu", "closest_hit.cu", "any_hit.cu")
+SOURCES = ("bin_clusters.cu", "closest_hit.cu", "any_hit.cu",
+           "precision_micro.cu")
 # -Xptxas -v reports each kernel's registers, shared memory and spills into
 # the build log.  No --use_fast_math: the kernels need IEEE divides and
 # unflushed denormals.
@@ -161,6 +164,8 @@ def _lib() -> ctypes.CDLL:
     lib.dxrt_closest_hit.restype = i
     lib.dxrt_any_hit.argtypes = [p] * 10 + [i, i, i, i, f, i, p]
     lib.dxrt_any_hit.restype = i
+    lib.dxrt_precision_fold.argtypes = [p, p, p, i, i, p]
+    lib.dxrt_precision_fold.restype = i
     lib.dxrt_error_string.argtypes = [i]
     lib.dxrt_error_string.restype = ctypes.c_char_p
     return lib
@@ -177,10 +182,15 @@ def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _launched(lib: ctypes.CDLL, kernel: str, err: int) -> None:
+def check_launch(lib: ctypes.CDLL, kernel: str, err: int) -> None:
+    """Raise if a launcher returned a CUDA error."""
     if err != 0:
         msg = lib.dxrt_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed: {msg} ({err})")
+
+
+def _launched(lib: ctypes.CDLL, kernel: str, err: int) -> None:
+    check_launch(lib, kernel, err)
     LAUNCHES[kernel] += 1
 
 
@@ -395,12 +405,16 @@ def woop_rows(cs: ClusterSet) -> torch.Tensor:
 
 
 def closest_hit_plain(origins, dirs, init_t, wrows, visit, ventry, counts,
-                      tile_r: int, t_min=T_MIN):
+                      tile_r: int, t_min=T_MIN, stats=None):
     """Plain torch version of ``closest_hit``: the same per-tile walk, one
     list position at a time for all live tiles at once (in chunks of
     ``PLAIN_CHUNK`` tiles to bound the (tiles, tile_r, K) temporaries).  Same
     float-op order as the kernel up to FMA contraction.  Returns best_t
-    (N,) f32 and best_slot (N,) i32."""
+    (N,) f32 and best_slot (N,) i32.
+
+    ``stats``, a dict, gets the work the walk's early-out leaves: the
+    (tile, cluster) pairs visited under ``"visits"`` and the (ray,
+    triangle) tests they need under ``"tests"``."""
     tiles = counts.shape[0]
     k = wrows.shape[2]
     o = origins.reshape(tiles, tile_r, 3)
@@ -416,6 +430,9 @@ def closest_hit_plain(origins, dirs, init_t, wrows, visit, ventry, counts,
         idx = live.nonzero()[:, 0]
         if idx.numel() == 0:
             break
+        if stats is not None:
+            stats["visits"] = stats.get("visits", 0) + idx.numel()
+            stats["tests"] = stats.get("tests", 0) + idx.numel() * tile_r * k
         for sel in idx.split(PLAIN_CHUNK):
             cl = visit[sel, i]
             w = wrows[cl.long()][:, :, None, :]  # (A, 12, 1, K)
@@ -481,12 +498,17 @@ def closest_hit(origins, dirs, init_t, wrows, visit, ventry, counts,
 
 
 def any_hit_plain(origins, dirs, t_max, wrows, visit, ventry, counts,
-                  tile_r: int, t_min=T_MIN):
+                  tile_r: int, t_min=T_MIN, stats=None):
     """Plain torch version of ``any_hit``: the same per-tile walk, one list
     position at a time for all live tiles at once (in chunks of
     ``PLAIN_CHUNK`` tiles).  A tile stops at the first entry past the
     largest t_max of its still-unblocked rays.  Same float-op order as the
-    kernel up to FMA contraction.  Returns blocked (N,) bool."""
+    kernel up to FMA contraction.  Returns blocked (N,) bool.
+
+    ``stats``, a dict, gets the work the walk's early-out leaves: the
+    (tile, cluster) pairs visited under ``"visits"`` and, under
+    ``"tests"``, K (ray, triangle) tests for each armed ray not yet blocked
+    when its tile visits a cluster."""
     tiles = counts.shape[0]
     o = origins.reshape(tiles, tile_r, 3)
     d = dirs.reshape(tiles, tile_r, 3)
@@ -501,6 +523,11 @@ def any_hit_plain(origins, dirs, t_max, wrows, visit, ventry, counts,
         idx = live.nonzero()[:, 0]
         if idx.numel() == 0:
             break
+        if stats is not None:
+            open_rays = int(((tm[idx] > t_min) & ~blocked[idx]).sum())
+            stats["visits"] = stats.get("visits", 0) + idx.numel()
+            stats["tests"] = (stats.get("tests", 0)
+                              + open_rays * wrows.shape[2])
         for sel in idx.split(PLAIN_CHUNK):
             w = wrows[visit[sel, i].long()][:, :, None, :]  # (A, 12, 1, K)
             ox, oy, oz = (o[sel, :, a, None] for a in range(3))  # (A, R, 1)

@@ -570,7 +570,7 @@ def build_light_table(scene: Scene) -> LightTable:
     return LightTable(position=_t(pos), intensity=_t(inten), n_lights=n)
 
 
-def build_device_scene(scene: Scene, device="cpu", base_dir: str = ".",
+def build_device_scene(scene: Scene, device="cuda", base_dir: str = ".",
                        tri_pad: int = TRI_PAD) -> DeviceScene:
     """Flatten a host Scene into device tensors — the analog of the one-time
     geometry upload at DXRTRenderer.cpp:302-453.  The buffers are built on
@@ -599,7 +599,7 @@ _SUBTABLES = {"geometry": Geometry, "materials": MaterialTable,
               "textures": TextureTable, "lights": LightTable}
 
 
-def scene_from_numpy(fields: dict, device="cpu") -> DeviceScene:
+def scene_from_numpy(fields: dict, device="cuda") -> DeviceScene:
     """A DeviceScene from the JAX package's DeviceScene leaves.
 
     ``fields`` maps the JAX field paths (``"geometry.v0"``,

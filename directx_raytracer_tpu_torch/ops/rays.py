@@ -87,7 +87,7 @@ def _offset(offset, device):
 
 def generate_rays_tiled(position, rotation, width: int, height: int,
                         tile_h: int, tile_w: int, offset=(0.5, 0.5),
-                        device="cpu"):
+                        device="cuda"):
     """Primary rays in TILE-MAJOR order, computed arithmetically.
 
     Pixel (px, py) lands at flat index
@@ -124,7 +124,7 @@ RGSS_OFFSETS = ((0.375, 0.125), (0.875, 0.375), (0.125, 0.625), (0.625, 0.875))
 
 
 def generate_rays(position, rotation, width: int, height: int,
-                  offset=(0.5, 0.5), device="cpu"):
+                  offset=(0.5, 0.5), device="cuda"):
     """Primary rays for every pixel, in row-major pixel order (pixel
     (px, py) at index py*width + px, the reference's UAV layout), sampled
     at sub-pixel ``offset``.  Returns origins, dirs (H*W, 3) f32 on

@@ -13,9 +13,14 @@ flip: hit/miss agreement >= 99.9%, same winner >= 99%, t within 1e-5
 relative on >= 99.9% of common hits.  ``any_hit`` contracts the same way:
 blocked flags agree on >= 99.9% of rays (the reference's occlusion gate).
 Whitted frames: within 2 u8 levels on >= 99% of pixels, alive per pass
-within 0.1% of the pixel count.
+within 0.1% of the pixel count.  ``precision_fold``: identical sentinel
+sets and each ray's min t within 1e-3 relative (the repository's t gate,
+bench.py:156-164) on >= 99.5% of rays: kernel and plain version sum the
+depth-8 products in different orders, and the tail's cancellation
+amplifies that to ~1e-4 relative on the winning t.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -28,6 +33,7 @@ from directx_raytracer_tpu_torch.ops.intersect import occluded_bruteforce
 from directx_raytracer_tpu_torch.render.debug import render_debug
 from directx_raytracer_tpu_torch.render.renderer import Renderer
 from directx_raytracer_tpu_torch.render.whitted import render_whitted
+from directx_raytracer_tpu_torch.tools import precision_micro as pm
 from directx_raytracer_tpu_torch.utils.image import to_u8
 
 pytestmark = pytest.mark.gpu
@@ -213,3 +219,52 @@ def test_whitted_frame_matches_plain(cuda):
     assert ((abs(diff) <= 2).all(axis=-1)).mean() >= 0.99
     assert (stats["alive"] - ref_stats["alive"]).abs().max() <= 0.001 * W * H
     assert stats["alive"][0] > 0
+
+
+@pytest.fixture(scope="module")
+def fold_inputs(cuda):
+    """Seeded standard normal w (64, 8, 6K) and rays (1, 8, R) on the card."""
+    rng = np.random.default_rng(0)
+    w = rng.standard_normal((64, 8, 6 * pm.K)).astype(np.float32)
+    rays = rng.standard_normal((1, 8, pm.R)).astype(np.float32)
+    return torch.from_numpy(w).to(cuda), torch.from_numpy(rays).to(cuda)
+
+
+@pytest.mark.parametrize("variant", pm.VARIANTS)
+def test_precision_fold_kernel_matches_plain(fold_inputs, variant):
+    w, rays = fold_inputs
+    before = pm.LAUNCHES[variant]
+    got = pm.min_t(pm.precision_fold(variant, w, rays))
+    assert pm.LAUNCHES[variant] == before + 1
+    want = pm.min_t(pm.precision_fold_plain(variant, w, rays))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.isfinite(want).sum() > pm.R // 2
+    assert pm.agreement(got, want, 1e-3) >= 0.995
+
+
+@pytest.mark.parametrize("variant", pm.VARIANTS)
+def test_precision_fold_zero_denominator_is_no_hit(cuda, variant):
+    """mm[5K+k] = 0 makes tt = +inf, u = NaN, v = +inf: a min that drops
+    NaN would accept it; the kernel must not."""
+    w = torch.zeros((1, 8, 6 * pm.K), device=cuda)
+    w[0, 0, 0:2 * pm.K] = 0.25
+    w[0, 0, 2 * pm.K:3 * pm.K] = -1.0
+    w[0, 0, 4 * pm.K:5 * pm.K] = 1.0
+    rays = torch.randn((1, 8, pm.R), device=cuda)
+    rays[0, 0] = 1.0
+    out = pm.precision_fold(variant, w, rays)
+    torch.cuda.synchronize()
+    assert (out == pm.SENTINEL).all()
+
+
+def test_precision_fold_rejects_bad_operands(fold_inputs):
+    w, rays = fold_inputs
+    with pytest.raises(ValueError):
+        pm.precision_fold("highest", w[:, :, :512].contiguous(), rays)
+    with pytest.raises(ValueError):
+        pm.precision_fold("highest", w.double(), rays)
+    with pytest.raises(ValueError):
+        pm.precision_fold("highest", w, rays[:, :, :128].contiguous())
+    with pytest.raises(ValueError):
+        pm.precision_fold("fast", w, rays)

@@ -90,20 +90,20 @@ def scene_pair(request):
 
 def test_device_scene_bit_equal(scene_pair):
     pscene, jscene = scene_pair
-    assert_bit_equal(as_numpy(build_device_scene(pscene)),
+    assert_bit_equal(as_numpy(build_device_scene(pscene, "cpu")),
                      as_numpy(j_build(jscene)))
 
 
 def test_scene_from_numpy_round_trip(scene_pair):
     pscene, jscene = scene_pair
-    from_jax = scene_from_numpy(as_numpy(j_build(jscene)))
+    from_jax = scene_from_numpy(as_numpy(j_build(jscene)), "cpu")
     assert_bit_equal(as_numpy(from_jax),
-                     as_numpy(build_device_scene(pscene)))
+                     as_numpy(build_device_scene(pscene, "cpu")))
 
 
 def test_clusters_bit_equal(scene_pair):
     pscene, jscene = scene_pair
-    got = as_numpy(build_clusters(build_device_scene(pscene).geometry))
+    got = as_numpy(build_clusters(build_device_scene(pscene, "cpu").geometry))
     want = as_numpy(j_build_clusters(j_build(jscene).geometry))
     assert_bit_equal(got, want)
     assert got["identity_order"] is True
@@ -112,14 +112,14 @@ def test_clusters_bit_equal(scene_pair):
 def test_clusters_from_numpy_round_trip(scene_pair):
     pscene, jscene = scene_pair
     ref = as_numpy(j_build_clusters(j_build(jscene).geometry))
-    assert_bit_equal(as_numpy(clusters_from_numpy(ref)), ref)
+    assert_bit_equal(as_numpy(clusters_from_numpy(ref, "cpu")), ref)
 
 
 def test_build_clusters_rejects_empty_scene():
     from directx_raytracer_tpu_torch.models.scene import Scene
 
     with pytest.raises(ValueError):
-        build_clusters(build_device_scene(Scene()).geometry)
+        build_clusters(build_device_scene(Scene(), "cpu").geometry)
 
 
 def test_device_scene_to_moves_every_tensor():
@@ -132,7 +132,7 @@ def test_device_scene_to_moves_every_tensor():
 def test_packed_ids_are_bit_patterns():
     """Record slots 9-11 carry int32 ids bitcast into f32; read through a
     bit view they equal the id columns."""
-    geo = build_device_scene(pts.cornell_box()).geometry
+    geo = build_device_scene(pts.cornell_box(), "cpu").geometry
     ids = geo.packed[:, 9:12].contiguous().view(torch.int32)
     assert torch.equal(ids[:, 0], geo.local_id)
     assert torch.equal(ids[:, 1], geo.mesh_id)
@@ -146,8 +146,9 @@ def test_crtscene_loads_equal(tmp_path):
     path = tmp_path / "box.crtscene"
     path.write_text(text)
     ref = as_numpy(j_build(jcrt.load(str(path), use_native=False)))
-    assert_bit_equal(as_numpy(build_device_scene(pcrt.loads(text))), ref)
-    assert_bit_equal(as_numpy(build_device_scene(pcrt.load(str(path)))), ref)
+    assert_bit_equal(as_numpy(build_device_scene(pcrt.loads(text), "cpu")), ref)
+    assert_bit_equal(as_numpy(build_device_scene(pcrt.load(str(path)), "cpu")),
+                     ref)
 
 
 @pytest.mark.parametrize("ops", [
@@ -179,13 +180,15 @@ def test_to_u8_and_png(tmp_path):
 
 
 def test_import_leaves_jax_out():
-    """Importing every port module pulls in neither jax nor the JAX
-    package."""
+    """Importing every port module (the precision micro's tool among them)
+    and chip_smoke.py pulls in neither jax nor the JAX package."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import directx_raytracer_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "importlib.import_module('directx_raytracer_tpu_torch.tools.precision_micro')\n"
+        "importlib.import_module('chip_smoke')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'directx_raytracer_tpu']\n"
         "assert not bad, bad\n"

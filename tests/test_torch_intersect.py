@@ -81,10 +81,10 @@ def fx():
     jbvh = j_build_bvh(jd.geometry)
     pos, rot = scene.camera.snapshot()
     jo, jdirs = j_rays_tiled(pos, rot, W, H, *TILE)
-    cs = clusters_from_numpy(numpy_leaves(jbvh.clusters))
+    cs = clusters_from_numpy(numpy_leaves(jbvh.clusters), "cpu")
     return SimpleNamespace(
         jd=jd, jbvh=jbvh, jo=jo, jdirs=jdirs, o=to_t(jo), d=to_t(jdirs),
-        geo=scene_from_numpy(device_scene_leaves(jd)).geometry,
+        geo=scene_from_numpy(device_scene_leaves(jd), "cpu").geometry,
         cs=cs, wrows=ci.woop_rows(cs))
 
 

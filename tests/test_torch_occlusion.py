@@ -64,7 +64,7 @@ def fx():
     jbvh = j_build_bvh(jd.geometry)
     pos, rot = scene.camera.snapshot()
     jo, jdirs = j_rays_tiled(pos, rot, W, H, *TILE)
-    cs = clusters_from_numpy(numpy_leaves(jbvh.clusters))
+    cs = clusters_from_numpy(numpy_leaves(jbvh.clusters), "cpu")
     return SimpleNamespace(
         jd=jd, jbvh=jbvh, jo=jo, jdirs=jdirs,
         o=torch.from_numpy(np.array(jo)), d=torch.from_numpy(np.array(jdirs)),
@@ -191,9 +191,36 @@ def test_disarmed_lanes_stay_unblocked(fx):
     assert not got[1::2].any() and got[0::2].sum() > 50
 
 
+def test_plain_walks_count_their_work(fx):
+    """``stats`` of the plain walks: the (tile, cluster) pairs the
+    early-out leaves and the (ray, triangle) tests they need, without
+    changing the result."""
+    k = fx.wrows.shape[2]
+    o, d, t_init = ci.pad_and_seed(fx.o, fx.d, fx.cs, ci.TILE_R)
+    visit, ventry, counts = ci.visit_lists(*ci.bin_clusters_plain(
+        ci.tile_params(o, d, ci.TILE_R), fx.cb))
+    args = (o, d, t_init, fx.wrows, visit, ventry, counts, ci.TILE_R)
+    stats = {}
+    got = ci.closest_hit_plain(*args, stats=stats)
+    for a, b in zip(got, ci.closest_hit_plain(*args)):
+        assert torch.equal(a, b)
+    assert 0 < stats["visits"] < int(counts.sum())  # the early-out bites
+    assert stats["tests"] == stats["visits"] * ci.TILE_R * k
+
+    tm = torch.where(torch.arange(fx.o.shape[0]) % 2 == 0, 25.0, 0.0)
+    o, d, tm, *lists = ci.anyhit_schedule(fx.o, fx.d, tm, fx.cs)
+    args = (o, d, tm, fx.wrows, *lists, ci.TILE_R)
+    stats = {}
+    got = ci.any_hit_plain(*args, stats=stats)
+    assert torch.equal(got, ci.any_hit_plain(*args))
+    assert 0 < stats["visits"] <= int(lists[2].sum())
+    # at most half the lanes are armed
+    assert 0 < stats["tests"] <= stats["visits"] * ci.TILE_R // 2 * k
+
+
 def test_occluder_factory(fx):
     """The renderer-facing closure: factory(geometry) -> (o, d, max_t)."""
-    geo = build_device_scene(pts.bench_scene(3_000, W, H)).geometry
+    geo = build_device_scene(pts.bench_scene(3_000, W, H), "cpu").geometry
     occluded = make_bvh_occluder_factory(build_bvh(geo))(geo)
     tm = torch.full((fx.o.shape[0],), 25.0)
     want = px.occluded_bruteforce(fx.o, fx.d, geo.woop, tm)

@@ -41,7 +41,7 @@ def test_pick_schedule_matches_jax(size):
 def test_generate_rays_matches_jax(cam, size):
     pos, rot = cameras()[cam].snapshot()
     w, h = size
-    o, d = prays.generate_rays(pos, rot, w, h)
+    o, d = prays.generate_rays(pos, rot, w, h, device="cpu")
     jo, jd = jrays.generate_rays(pos, rot, w, h)
     np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=ATOL, rtol=0)
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=ATOL, rtol=0)
@@ -54,12 +54,12 @@ def test_generate_rays_matches_jax(cam, size):
 def test_generate_rays_tiled_matches_jax(cam, size, tile):
     pos, rot = cameras()[cam].snapshot()
     w, h = size
-    o, d = prays.generate_rays_tiled(pos, rot, w, h, *tile)
+    o, d = prays.generate_rays_tiled(pos, rot, w, h, *tile, device="cpu")
     jo, jd = jrays.generate_rays_tiled(pos, rot, w, h, *tile)
     np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=ATOL, rtol=0)
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=ATOL, rtol=0)
     # Untiling the tile-major rays gives the row-major rays back.
-    _, d_raster = prays.generate_rays(pos, rot, w, h)
+    _, d_raster = prays.generate_rays(pos, rot, w, h, device="cpu")
     np.testing.assert_allclose(untile(d, w, h, tile).reshape(-1, 3).numpy(),
                                d_raster.numpy(), atol=ATOL, rtol=0)
 
@@ -80,10 +80,11 @@ def test_offsets_match_jax(offset):
     """Sub-pixel offsets (RGSS and Hammersley samples) in both raygens."""
     pos, rot = cameras()["bench"].snapshot()
     w, h = 96, 48
-    o, d = prays.generate_rays(pos, rot, w, h, offset)
+    o, d = prays.generate_rays(pos, rot, w, h, offset, device="cpu")
     jo, jd = jrays.generate_rays(pos, rot, w, h, offset)
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=ATOL, rtol=0)
-    o, d = prays.generate_rays_tiled(pos, rot, w, h, 24, 32, offset)
+    o, d = prays.generate_rays_tiled(pos, rot, w, h, 24, 32, offset,
+                                     device="cpu")
     jo, jd = jrays.generate_rays_tiled(pos, rot, w, h, 24, 32, offset)
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=ATOL, rtol=0)
     assert prays.RGSS_OFFSETS == jrays.RGSS_OFFSETS

@@ -67,7 +67,8 @@ class Pair:
         r = self.renderer
         geo = r.dscene.geometry
         tile, tile_r = pick_schedule(H, W)
-        o, d = generate_rays_tiled(self.pos, self.rot, W, H, *tile)
+        o, d = generate_rays_tiled(self.pos, self.rot, W, H, *tile,
+                                   device="cpu")
         if r.intersect_fn is None:
             hit = intersect_bruteforce(o, d, geo.woop)
         else:
@@ -78,7 +79,8 @@ class Pair:
 
     def near_cell_edge(self, eps=1e-4):
         tile, _ = pick_schedule(H, W)
-        o, d = generate_rays_tiled(self.pos, self.rot, W, H, *tile)
+        o, d = generate_rays_tiled(self.pos, self.rot, W, H, *tile,
+                                   device="cpu")
         hit = intersect_bruteforce(o, d, self.renderer.dscene.geometry.woop)
         t = torch.where(hit.mask, hit.t, 0.0)
         p = untile(o + d * t[:, None], W, H, tile).numpy()[..., [0, 2]]

@@ -64,7 +64,7 @@ def t(x) -> torch.Tensor:
 
 
 def port_scene(jd):
-    return scene_from_numpy(device_scene_leaves(jd))
+    return scene_from_numpy(device_scene_leaves(jd), "cpu")
 
 
 # ---------------------------------------------------------------------------
