@@ -14,7 +14,7 @@ Phases, each of which raises (exit code != 0) on failure:
    printed);
 3. bin_clusters and closest_hit against their plain torch versions on the
    card, at the shapes the main path gives them, on bench_scene(3_000) at
-   96x48 and bench_scene(100_000) at 1920x1080;
+   96x48 and bench_scene(100_000) at 1920x1080 (the primary batch);
 4. the debug path: Renderer(bench_scene(100_000), 1920, 1080,
    device="cuda").render_frame(mode) for modes 0-6, with launch counters
    reset just before and read just after; frames must be finite and hit
@@ -23,17 +23,21 @@ Phases, each of which raises (exit code != 0) on failure:
 5. timing with CUDA events: mode-5 frame ms and Mrays/s, and each kernel
    beside its plain version;
 6. the Whitted path: any_hit against its plain version on a 3k/96x48
-   shadow batch and on the real primary shadow batch of the 1080p/100k
-   Whitted frame (captured at the occluder); then the same Renderer's
-   render_whitted_frame(max_depth=3) with counters reset just before and
-   read just after (bin_clusters, closest_hit and any_hit must launch),
-   checked against the frame rendered through the plain versions, one
-   PNG, and its frame time beside any_hit's and any_hit_plain's;
+   shadow batch; then one 1080p/100k Whitted frame whose batches are
+   captured where the frame hands them over (the intersector's calls and
+   the occluder's, with the launches each made): any_hit at the primary
+   and the bounce pass's shadow batches and closest_hit at the bounce
+   pass's batch, each against its plain version and timed beside its
+   bound; then the same Renderer's render_whitted_frame(max_depth=3) with
+   counters reset just before and read just after (bin_clusters,
+   closest_hit and any_hit must launch), checked against the frame
+   rendered through the plain versions, one PNG, and its frame time;
 7. the 1M path: bin_clusters_super against its plain version and the dense
    kernel at bench_scene(1_000_000) 1080p shapes, then
    Renderer(bench_scene(1_000_000), 1920, 1080,
    device="cuda").render_frame(5) with counters (bin_clusters_super must
-   launch), checked against the plain-version frame and timed;
+   launch), checked against the plain-version frame, closest_hit against
+   its plain version at the 1M primary batch, and the frame timed;
 8. the precision micro: its entry point (tools.precision_micro.main, the
    kernel's three variants at the tool's shapes, S = 2048 steps) with its
    counters reset just before and read just after (every variant must
@@ -45,7 +49,11 @@ time the card could take for the same work: bytes over the memory rate or
 operations over the peak rate, whichever is larger, computed from this
 run's inputs; for closest_hit and any_hit from the pairs their plain walks
 visit) and library_ms: null, since no single PyTorch call computes any of
-these functions.
+these functions.  closest_hit's and any_hit's lines also carry "batches",
+one record per batch they serve (ms, plain_ms, bound_ms, bound_by and the
+launches on its path); their top-level numbers are the primary batch's.
+Each batch prints its work items, longest list, visited of binned pairs
+and (ray, triangle) tests.
 
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {...}}.
@@ -141,7 +149,7 @@ BF16_OPS_PER_S = 989e12
 #   multiplies, 8 clips and 8 min/max; then 6 for t_min, the overlap
 #   compares and the divide by len_hi;
 SLAB_OPS = 93
-# * one (ray, triangle) Woop test (closest_hit.cu, any_hit.cu): 17
+# * one (ray, triangle) Woop test (csrc/walk.cuh ``woop_test``): 17
 #   multiply-adds and 3 multiplies, a negate and a divide, 2 subtracts and
 #   5 compares;
 PAIR_TEST_OPS = 46
@@ -222,10 +230,25 @@ def check_bin(x, label):
     return e_p, o_p, max_abs
 
 
-def check_closest(x, e_p, o_p, label):
-    visit, ventry, counts = ci.visit_lists(e_p, o_p)
-    args = (x["o"], x["d"], x["t_init"], x["wrows"], visit, ventry, counts,
-            x["tile_r"])
+def closest_args(o, d, bvh, tile_r):
+    """The closest_hit operands of a ray batch, as intersect_fused builds
+    them (the lists binned by the plain binner)."""
+    o, d, t_init = ci.pad_and_seed(o, d, bvh.clusters, tile_r)
+    entry, overlap = ci.bin_clusters(ci.tile_params(o, d, tile_r),
+                                     ci.cluster_rows(bvh.clusters), bvh.srows,
+                                     plain=True)
+    return (o, d, t_init, bvh.wrows, *ci.visit_lists(entry, overlap), tile_r)
+
+
+def closest_items(counts) -> int:
+    """Work items of the closest_hit kernel for these lists."""
+    return int(((counts + ci.CLOSEST_CHUNK - 1) // ci.CLOSEST_CHUNK).sum())
+
+
+def check_closest(args, label):
+    """Kernel vs plain version on one closest-hit batch.  Returns the
+    largest t difference among equal winners and the kernel's bound."""
+    visit, counts = args[4], args[6]
     bt_k, bs_k = ci.closest_hit(*args)
     work = {}
     bt_p, bs_p = ci.closest_hit_plain(*args, stats=work)
@@ -239,8 +262,9 @@ def check_closest(x, e_p, o_p, label):
     t_share = (rel <= T_RTOL).float().mean().item() if both.any() else 1.0
     max_abs = ((bt_k[both][same] - bt_p[both][same]).abs().max().item()
                if same.any() else 0.0)
-    print(f"[{label}] closest_hit: {counts.shape[0]} tiles x {x['tile_r']} "
-          f"rays, list length {visit.shape[1]}, {int(hp.sum())} hits; "
+    print(f"[{label}] closest_hit: {counts.shape[0]} tiles x {args[-1]} "
+          f"rays, longest list {visit.shape[1]}, {closest_items(counts)} work "
+          f"items, {int(hp.sum())} hits; "
           f"hit/miss agreement {hit_agree:.6f}, winner agreement "
           f"{winner:.6f}, t within {T_RTOL:g} rel on {t_share:.6f}; the "
           f"walk visits {work['visits']} of {int(counts.sum())} binned pairs, "
@@ -248,21 +272,46 @@ def check_closest(x, e_p, o_p, label):
     require(hit_agree >= HIT_AGREE, f"closest_hit hit/miss agreement {hit_agree}")
     require(winner >= WINNER_AGREE, f"closest_hit winner agreement {winner}")
     require(t_share >= T_RTOL_SHARE, f"closest_hit t agreement {t_share}")
-    n = x["o"].shape[0]
+    n = args[0].shape[0]
     walk_bound = bound(nbytes(*args[:7]) + 8 * n, work["tests"] * PAIR_TEST_OPS)
-    return args, max_abs, walk_bound
+    return max_abs, walk_bound
 
 
-def kernels_vs_plain(device):
+def batch_record(label, kernel, plain, args, walk_bound, launches, card,
+                 plain_reps=PLAIN_REPS):
+    """Time one kernel and its plain version on one batch."""
+    rec = dict(batch=label, launches=launches,
+               ms=time_ms(lambda: kernel(*args), KERNEL_REPS),
+               plain_ms=time_ms(lambda: plain(*args), plain_reps, warmup=1),
+               bound_ms=walk_bound[0], bound_by=walk_bound[1])
+    print(f"{kernel.__name__} at the {label} batch: kernel {rec['ms']:.4f} ms, "
+          f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}), {launches} launches on its path (medians, "
+          f"CUDA events) [{card}]")
+    return rec
+
+
+def closest_batch(args, label, launches, card):
+    """closest_hit against its plain version on one batch, timed: the
+    batch's record and the largest t difference among equal winners."""
+    err, walk_bound = check_closest(args, label)
+    return batch_record(label, ci.closest_hit, ci.closest_hit_plain, args,
+                        walk_bound, launches, card), err
+
+
+def kernels_vs_plain(device, card):
     """Phase 3 (+ the kernel half of phase 5): returns per-kernel records
-    measured at the main path's 1080p shapes."""
+    measured at the main path's 1080p shapes.  closest_hit's launches are
+    filled in from the debug path's run."""
     records = {}
     for label, (n_tris, width, height) in (("3k 96x48", SMALL_SCENE),
                                            ("100k 1080p", BIG_SCENE)):
         x = kernel_inputs(n_tris, width, height, device)
         e_p, o_p, bin_err = check_bin(x, label)
-        args, hit_err, walk_bound = check_closest(x, e_p, o_p, label)
+        args = (x["o"], x["d"], x["t_init"], x["wrows"],
+                *ci.visit_lists(e_p, o_p), x["tile_r"])
         if (n_tris, width, height) != BIG_SCENE:
+            check_closest(args, label)
             continue
         tiles, c = e_p.shape
         bin_bound = bound(nbytes(x["tp"], x["cb"]) + 5 * tiles * c,
@@ -273,11 +322,11 @@ def kernels_vs_plain(device):
             plain_ms=time_ms(lambda: ci.bin_clusters_plain(x["tp"], x["cb"]),
                              PLAIN_REPS),
             bound_ms=bin_bound[0], bound_by=bin_bound[1], library_ms=None)
+        batch, hit_err = closest_batch(args, "100k 1080p primary", 0, card)
         records["closest_hit"] = dict(
-            max_abs_err=hit_err,
-            ms=time_ms(lambda: ci.closest_hit(*args), KERNEL_REPS),
-            plain_ms=time_ms(lambda: ci.closest_hit_plain(*args), PLAIN_REPS),
-            bound_ms=walk_bound[0], bound_by=walk_bound[1], library_ms=None)
+            max_abs_err=hit_err, ms=batch["ms"], plain_ms=batch["plain_ms"],
+            bound_ms=batch["bound_ms"], bound_by=batch["bound_by"],
+            library_ms=None, batches=[batch])
     return records
 
 
@@ -364,9 +413,9 @@ def any_hit_args(o, d, t_max, bvh):
     return (o, d, t_max, bvh.wrows, *lists, TILE_R)
 
 
-def check_any_hit(args, label):
-    """Kernel vs plain version on one shadow batch.  Returns the largest
-    flag difference and the kernel's bound for this batch."""
+def check_any_hit(args, label, must_block=True):
+    """Kernel vs plain version on one shadow batch.  Returns whether any
+    flag differs and the kernel's bound for this batch."""
     b_k = ci.any_hit(*args)
     work = {}
     b_p = ci.any_hit_plain(*args, stats=work)
@@ -374,14 +423,16 @@ def check_any_hit(args, label):
     agree = (b_k == b_p).float().mean().item()
     armed = int((args[2] > 0).sum())
     counts = args[6]
+    items = ci.anyhit_work_items(counts)
     print(f"[{label}] any_hit: {counts.shape[0]} tiles x {args[-1]} rays "
-          f"({armed} armed), list length {args[4].shape[1]}, "
+          f"({armed} armed), longest list {args[4].shape[1]}, "
+          f"{items[0].shape[0]} work items, "
           f"{int(b_p.sum())} blocked; blocked agreement {agree:.6f}; the "
           f"walk visits {work['visits']} of {int(counts.sum())} binned pairs, "
           f"{work['tests']} (ray, triangle) tests")
     require(agree >= BLOCKED_AGREE, f"any_hit blocked agreement {agree}")
-    require(int(b_p.sum()) > 0, "the shadow batch blocks no ray")
-    items = ci.anyhit_work_items(counts)
+    require(int(b_p.sum()) > 0 or not must_block,
+            "the shadow batch blocks no ray")
     walk_bound = bound(nbytes(*args[:7], *items) + b_k.numel(),
                        work["tests"] * PAIR_TEST_OPS)
     return float((b_k != b_p).any()), walk_bound
@@ -408,34 +459,58 @@ def whitted_path(r, card):
     width, height = r.width, r.height
     check_any_hit(small_shadow_batch(r.device), "3k 96x48")
 
-    # The primary pass's shadow batch, exactly as direct_lighting hands it
-    # to the occluder (Morton-sorted, 4 lights x 2,073,600 rays).
-    captured = []
+    # Each pass's ray batch as the frame hands it to the intersector and
+    # its shadow batch as direct_lighting hands it to the occluder
+    # (Morton-sorted, 4 lights x the pass's rays), with the kernel launches
+    # each call made.
+    rays, shadows = [], []
 
-    def capturing(geo):
+    def capturing_isect(o, d, geo, tile_r=None):
+        before = ci.LAUNCHES["closest_hit"]
+        hit = r.intersect_fn(o, d, geo, tile_r=tile_r)
+        rays.append((o.clone(), d.clone(), tile_r or TILE_R,
+                     ci.LAUNCHES["closest_hit"] - before))
+        return hit
+
+    def capturing_occ(geo):
         occluded = r.occluder_factory(geo)
 
         def occ(o, d, t_max):
-            if not captured:
-                captured.append((o.clone(), d.clone(), t_max.clone()))
-            return occluded(o, d, t_max)
+            before = ci.LAUNCHES["any_hit"]
+            blocked = occluded(o, d, t_max)
+            shadows.append((o.clone(), d.clone(), t_max.clone(),
+                            ci.LAUNCHES["any_hit"] - before))
+            return blocked
         return occ
 
     pos, rot = r.camera.snapshot()
     render_whitted(r.dscene, pos, rot, width, height, max_depth=WHITTED_DEPTH,
-                   intersect_fn=r.intersect_fn, occluder_factory=capturing)
-    o, d, t_max = captured[0]
-    require(o.shape == (r.dscene.lights.n_lights * width * height, 3),
-            f"primary shadow batch shape {tuple(o.shape)}")
-    args = any_hit_args(o, d, t_max, r.bvh)
-    err, walk_bound = check_any_hit(args, "100k 1080p primary shadow batch")
-    record = dict(max_abs_err=err,
-                  ms=time_ms(lambda: ci.any_hit(*args), KERNEL_REPS),
-                  plain_ms=time_ms(lambda: ci.any_hit_plain(*args), PLAIN_REPS,
-                                   warmup=1),
-                  bound_ms=walk_bound[0], bound_by=walk_bound[1],
-                  library_ms=None)
-    del captured, args
+                   intersect_fn=capturing_isect, occluder_factory=capturing_occ)
+    require(len(rays) >= 2 and len(shadows) >= 2,
+            f"the Whitted frame made {len(rays)} intersector and "
+            f"{len(shadows)} occluder calls, expected a bounce pass")
+    require(shadows[0][0].shape == (r.dscene.lights.n_lights * width * height, 3),
+            f"primary shadow batch shape {tuple(shadows[0][0].shape)}")
+    any_batches, err = [], 0.0
+    for (o, d, t_max, launches), label in zip(
+            shadows[:2], ("100k 1080p primary shadow", "100k 1080p bounce shadow")):
+        args = any_hit_args(o, d, t_max, r.bvh)
+        flag_err, walk_bound = check_any_hit(args, label,
+                                             must_block=not any_batches)
+        err = max(err, flag_err)
+        any_batches.append(batch_record(label, ci.any_hit, ci.any_hit_plain,
+                                        args, walk_bound, launches, card))
+        del args
+    primary = any_batches[0]
+    record = dict(max_abs_err=err, ms=primary["ms"],
+                  plain_ms=primary["plain_ms"], bound_ms=primary["bound_ms"],
+                  bound_by=primary["bound_by"], library_ms=None,
+                  batches=any_batches)
+    o, d, tile_r, launches = rays[1]
+    bounce, bounce_err = closest_batch(closest_args(o, d, r.bvh, tile_r),
+                                       "100k 1080p Whitted bounce", launches,
+                                       card)
+    del rays, shadows
 
     ci.reset_launch_counts()
     img, stats = r.render_whitted_frame(max_depth=WHITTED_DEPTH)
@@ -473,7 +548,7 @@ def whitted_path(r, card):
     print(f"whitted depth-{WHITTED_DEPTH} frame at {width}x{height}, "
           f"bench_scene(100_000): {frame_ms:.4f} ms median of {WHITTED_REPS} "
           f"[{card}]")
-    return record, launches
+    return record, (bounce, bounce_err), launches
 
 
 def huge_path(device, card):
@@ -551,11 +626,13 @@ def huge_path(device, card):
     print(f"1M mode 5: {agree:.6f} of pixels within {PIXEL_LEVELS} levels of "
           f"the plain-version frame")
     require(agree >= PIXEL_AGREE, f"1M pixel agreement {agree}")
+    closest = closest_batch(closest_args(o, d, r.bvh, tile_r),
+                            "1M 1080p primary", launches["closest_hit"], card)
     frame_ms = time_ms(lambda: r.render_frame(5), HUGE_REPS)
     print(f"mode-5 frame at {width}x{height}, bench_scene(1_000_000): "
           f"{frame_ms:.4f} ms median of {HUGE_REPS}, "
           f"{width * height / frame_ms / 1e3:.2f} Mrays/s [{card}]")
-    return record, launches
+    return record, closest, launches
 
 
 def precision_path(device, card):
@@ -632,11 +709,13 @@ def main() -> int:
     if log.exists():
         print(log.read_text().strip())
 
-    records = kernels_vs_plain(device)
+    records = kernels_vs_plain(device, card)
     for name, rec in records.items():
         print(f"{name} at 1080p/100k shapes: kernel {rec['ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f} ms (medians, CUDA events) [{card}]")
     r, launches = main_path(device)
+    closest = records["closest_hit"]
+    closest["batches"][0]["launches"] = launches["closest_hit"]
 
     frame_ms = time_ms(lambda: r.render_frame(5), FRAME_REPS, warmup=3)
     n_rays = r.width * r.height
@@ -644,14 +723,14 @@ def main() -> int:
           f"{frame_ms:.4f} ms median of {FRAME_REPS}, "
           f"{n_rays / frame_ms / 1e3:.2f} Mrays/s [{card}]")
 
-    records["any_hit"], whitted_launches = whitted_path(r, card)
-    print(f"any_hit at the 1080p/100k primary shadow batch: kernel "
-          f"{records['any_hit']['ms']:.4f} ms, plain "
-          f"{records['any_hit']['plain_ms']:.4f} ms (medians, CUDA events) "
-          f"[{card}]")
+    records["any_hit"], (bounce, bounce_err), whitted_launches = whitted_path(
+        r, card)
     del r
     torch.cuda.empty_cache()
-    records["bin_clusters_super"], huge_launches = huge_path(device, card)
+    records["bin_clusters_super"], (huge, huge_err), huge_launches = huge_path(
+        device, card)
+    closest["batches"] += [bounce, huge]
+    closest["max_abs_err"] = max(closest["max_abs_err"], bounce_err, huge_err)
     torch.cuda.empty_cache()
     variants = precision_path(device, card)
 

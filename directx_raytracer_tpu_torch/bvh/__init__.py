@@ -26,9 +26,11 @@ from .cuda_intersect import (
 
 @dataclass
 class BVH:
-    """Clusters plus the kernel-friendly copies made once per build: their
-    (C, 12, K) Woop rows (``woop_rows``) and (8, S) superblock hull rows
-    (``super_rows``, read by the superblock binner)."""
+    """Clusters plus the kernel operands made once per build: their
+    (C, K, 12) triangle-major Woop rows (``woop_rows``: the clusters' Woop
+    blocks as they are, read by the closest-hit and any-hit walks) and
+    (8, S) superblock hull rows (``super_rows``, read by the superblock
+    binner)."""
 
     clusters: ClusterSet
     wrows: torch.Tensor

@@ -22,7 +22,10 @@ kernel ``_make_anyhit_kernel`` becomes ``any_hit`` (csrc/any_hit.cu), and
 5. ``closest_hit``: each tile walks its list near to far and stops once
    the next entry exceeds the tile's largest best t.  No cluster is ever
    dropped: every overlapping cluster is either visited or provably
-   farther than every ray's best.
+   farther than every ray's best.  The kernel cuts the lists into work
+   items of ``CLOSEST_CHUNK`` positions that run in parallel and merge
+   each ray's result as a packed (t, slot) key (``pack_keys``/
+   ``unpack_keys``) with a 64-bit atomicMin.
 
 An occlusion query pads with parked rays (origin 1e30, dir 1, t_max 0),
 bounds each tile over its armed rays only, caps its binning at its largest
@@ -63,6 +66,7 @@ TILE_R = 256  # default rays per tile (one 8x32 pixel tile)
 MAX_TILE_R = 768  # closest_hit: 256 threads x at most 3 rays each
 ANYHIT_MAX_TILE_R = 256  # any_hit: one ray per thread
 ANYHIT_CHUNK = 16  # any_hit: list positions per work item (one CTA each)
+CLOSEST_CHUNK = 2  # closest_hit: list positions per work item
 PLAIN_CHUNK = 128  # tiles per step of the plain walks (~50 MB temporaries)
 BIG = 1e30
 SUPER_BLOCK = 128  # clusters per superblock of the superblock binner
@@ -88,6 +92,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("bin_clusters.cu", "closest_hit.cu", "any_hit.cu",
            "precision_micro.cu")
+HEADERS = ("walk.cuh",)  # included by closest_hit.cu and any_hit.cu
 # -Xptxas -v reports each kernel's registers, shared memory and spills into
 # the build log.  No --use_fast_math: the kernels need IEEE divides and
 # unflushed denormals.
@@ -106,7 +111,7 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libdxrt_kernels_{h.hexdigest()[:16]}.so"
 
@@ -160,7 +165,7 @@ def _lib() -> ctypes.CDLL:
     lib.dxrt_bin_clusters.restype = i
     lib.dxrt_bin_clusters_super.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.dxrt_bin_clusters_super.restype = i
-    lib.dxrt_closest_hit.argtypes = [p] * 9 + [i, i, i, i, f, p]
+    lib.dxrt_closest_hit.argtypes = [p] * 10 + [i, i, i, i, i, f, i, p]
     lib.dxrt_closest_hit.restype = i
     lib.dxrt_any_hit.argtypes = [p] * 10 + [i, i, i, i, f, i, p]
     lib.dxrt_any_hit.restype = i
@@ -398,10 +403,28 @@ def visit_lists(entry: torch.Tensor, overlap: torch.Tensor):
 
 
 def woop_rows(cs: ClusterSet) -> torch.Tensor:
-    """(C, 12, K) f32 Woop rows: row 4*a + j holds W[a][j] of each of the
-    cluster's K triangles — the closest-hit kernel's per-visit operand."""
+    """(C, K, 12) f32 Woop rows, triangle-major: entry [c, kk, 4*a + j]
+    holds W[a][j] of the cluster's triangle kk (``cs.woop`` as it is, made
+    contiguous) — the walks' per-visit operand, 48 bytes (three float4) a
+    triangle."""
     c, k = cs.woop.shape[0], cs.woop.shape[1]
-    return cs.woop.reshape(c, k, 12).transpose(1, 2).contiguous()
+    return cs.woop.reshape(c, k, 12).contiguous()
+
+
+def _woop_tests(w, o, d, sel):
+    """t, u, v of the tiles ``sel``'s rays against clusters ``w`` (A, K,
+    12): (A, R, K) each, today's formulas with an IEEE divide."""
+    w = w.transpose(1, 2)[:, :, None, :]  # (A, 12, 1, K)
+    ox, oy, oz = (o[sel, :, a, None] for a in range(3))  # (A, R, 1)
+    dx, dy, dz = (d[sel, :, a, None] for a in range(3))
+    ozp = w[:, 8] * ox + w[:, 9] * oy + w[:, 10] * oz + w[:, 11]
+    dzp = w[:, 8] * dx + w[:, 9] * dy + w[:, 10] * dz
+    t = -ozp / dzp
+    u = ((w[:, 0] * ox + w[:, 1] * oy + w[:, 2] * oz + w[:, 3])
+         + t * (w[:, 0] * dx + w[:, 1] * dy + w[:, 2] * dz))
+    v = ((w[:, 4] * ox + w[:, 5] * oy + w[:, 6] * oz + w[:, 7])
+         + t * (w[:, 4] * dx + w[:, 5] * dy + w[:, 6] * dz))
+    return t, u, v
 
 
 def closest_hit_plain(origins, dirs, init_t, wrows, visit, ventry, counts,
@@ -416,7 +439,7 @@ def closest_hit_plain(origins, dirs, init_t, wrows, visit, ventry, counts,
     (tile, cluster) pairs visited under ``"visits"`` and the (ray,
     triangle) tests they need under ``"tests"``."""
     tiles = counts.shape[0]
-    k = wrows.shape[2]
+    k = wrows.shape[1]
     o = origins.reshape(tiles, tile_r, 3)
     d = dirs.reshape(tiles, tile_r, 3)
     best_t = init_t.reshape(tiles, tile_r).clone()
@@ -435,16 +458,7 @@ def closest_hit_plain(origins, dirs, init_t, wrows, visit, ventry, counts,
             stats["tests"] = stats.get("tests", 0) + idx.numel() * tile_r * k
         for sel in idx.split(PLAIN_CHUNK):
             cl = visit[sel, i]
-            w = wrows[cl.long()][:, :, None, :]  # (A, 12, 1, K)
-            ox, oy, oz = (o[sel, :, a, None] for a in range(3))  # (A, R, 1)
-            dx, dy, dz = (d[sel, :, a, None] for a in range(3))
-            ozp = w[:, 8] * ox + w[:, 9] * oy + w[:, 10] * oz + w[:, 11]
-            dzp = w[:, 8] * dx + w[:, 9] * dy + w[:, 10] * dz
-            t = -ozp / dzp
-            u = ((w[:, 0] * ox + w[:, 1] * oy + w[:, 2] * oz + w[:, 3])
-                 + t * (w[:, 0] * dx + w[:, 1] * dy + w[:, 2] * dz))
-            v = ((w[:, 4] * ox + w[:, 5] * oy + w[:, 6] * oz + w[:, 7])
-                 + t * (w[:, 4] * dx + w[:, 5] * dy + w[:, 6] * dz))
+            t, u, v = _woop_tests(wrows[cl.long()], o, d, sel)
             ok = (u >= 0) & (v >= 0) & (1.0 - u - v >= 0) & (t >= t_min)
             tk, ik = torch.where(ok, t, float("inf")).min(dim=2)  # lowest k on ties
             slot = cl[:, None] * k + kk[ik]
@@ -455,41 +469,74 @@ def closest_hit_plain(origins, dirs, init_t, wrows, visit, ventry, counts,
     return best_t.reshape(-1), best_slot.reshape(-1)
 
 
+def pack_keys(t: torch.Tensor, slot=None) -> torch.Tensor:
+    """(N,) i64 keys ``(bits(t) << 32) | (slot + 1)``, the closest-hit
+    kernel's merge operand: for t >= 0 the bits of t order as the floats
+    do, so the least key is the least t, ties to the lower slot.
+    ``slot=None`` gives the seeds ``(bits(t) << 32) | 0``, which a hit at
+    exactly t never beats (slot + 1 >= 1)."""
+    keys = t.contiguous().view(torch.int32).to(torch.int64) << 32
+    return keys if slot is None else keys | (slot.to(torch.int64) + 1)
+
+
+def unpack_keys(keys: torch.Tensor):
+    """Inverse of ``pack_keys``: t (N,) f32 and slot (N,) i32, -1 for a
+    seed.  t is a strided view of the keys' high words (little-endian:
+    each key is its low word, then its high word)."""
+    words = keys.view(torch.int32).view(-1, 2)
+    return words[:, 1].view(torch.float32), words[:, 0] - 1
+
+
 def closest_hit(origins, dirs, init_t, wrows, visit, ventry, counts,
-                tile_r: int, t_min=T_MIN):
+                tile_r: int, t_min=T_MIN, chunk: int = CLOSEST_CHUNK):
     """Closest hit of every ray over its tile's visit list: the
     ``closest_hit`` kernel for CUDA tensors, its plain version for CPU
     tensors.  Returns best_t (N,) f32 and best_slot (N,) i32 (-1: no hit
-    closer than the seed)."""
+    closer than the seed).  Seeds must be >= 0 (``pack_keys``).
+
+    The kernel cuts each list into work items of ``chunk`` positions,
+    takes them depth by depth (every tile's depth j before any tile's depth
+    j + 1, tiles with the most items first), and merges each ray's result
+    through its packed key; it numbers the items itself, so the query
+    gains no host sync.  A list longer than 24 K chunks (K the cluster
+    width) takes longer chunks."""
     if origins.device.type == "cpu":
         return closest_hit_plain(origins, dirs, init_t, wrows, visit, ventry,
                                  counts, tile_r, t_min)
     if not 1 <= tile_r <= MAX_TILE_R:
         raise ValueError(f"tile_r {tile_r} outside [1, {MAX_TILE_R}]")
+    if chunk < 1:
+        raise ValueError(f"chunk {chunk} < 1")
     dev = origins.device
     tiles, width = visit.shape
     n = tiles * tile_r
-    c, _, k = wrows.shape
+    c, k, _ = wrows.shape
     _check("origins", origins, torch.float32, (n, 3), dev)
     _check("dirs", dirs, torch.float32, (n, 3), dev)
     _check("init_t", init_t, torch.float32, (n,), dev)
-    _check("wrows", wrows, torch.float32, (c, 12, k), dev)
+    _check("wrows", wrows, torch.float32, (c, k, 12), dev)
     _check("visit", visit, torch.int32, (tiles, width), dev)
     _check("ventry", ventry, torch.float32, (tiles, width), dev)
     _check("counts", counts, torch.int32, (tiles,), dev)
-    best_t = torch.empty((n,), dtype=torch.float32, device=dev)
-    best_slot = torch.empty((n,), dtype=torch.int32, device=dev)
+    keys = pack_keys(init_t)
     if tiles:
+        # The kernel's counting sort holds depths + 1 <= 24 K ints.
+        chunk = max(chunk, -(-width // (24 * k - 1)))
+        depths = -(-width // chunk)
+        order = torch.empty((tiles,), dtype=torch.int32, device=dev)
+        offs = torch.empty((depths + 1,), dtype=torch.int32, device=dev)
+        sched = torch.zeros((2,), dtype=torch.int32, device=dev)
         lib = _lib()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.dxrt_closest_hit(
-                origins.data_ptr(), dirs.data_ptr(), init_t.data_ptr(),
-                wrows.data_ptr(), visit.data_ptr(), ventry.data_ptr(),
-                counts.data_ptr(), best_t.data_ptr(), best_slot.data_ptr(),
-                tiles, tile_r, width, k, t_min, stream)
+                origins.data_ptr(), dirs.data_ptr(), wrows.data_ptr(),
+                visit.data_ptr(), ventry.data_ptr(), counts.data_ptr(),
+                order.data_ptr(), offs.data_ptr(), sched.data_ptr(),
+                keys.data_ptr(), tiles, depths, tile_r, width, k, t_min,
+                chunk, stream)
         _launched(lib, "closest_hit", err)
-    return best_t, best_slot
+    return unpack_keys(keys)
 
 
 # ---------------------------------------------------------------------------
@@ -527,18 +574,9 @@ def any_hit_plain(origins, dirs, t_max, wrows, visit, ventry, counts,
             open_rays = int(((tm[idx] > t_min) & ~blocked[idx]).sum())
             stats["visits"] = stats.get("visits", 0) + idx.numel()
             stats["tests"] = (stats.get("tests", 0)
-                              + open_rays * wrows.shape[2])
+                              + open_rays * wrows.shape[1])
         for sel in idx.split(PLAIN_CHUNK):
-            w = wrows[visit[sel, i].long()][:, :, None, :]  # (A, 12, 1, K)
-            ox, oy, oz = (o[sel, :, a, None] for a in range(3))  # (A, R, 1)
-            dx, dy, dz = (d[sel, :, a, None] for a in range(3))
-            ozp = w[:, 8] * ox + w[:, 9] * oy + w[:, 10] * oz + w[:, 11]
-            dzp = w[:, 8] * dx + w[:, 9] * dy + w[:, 10] * dz
-            t = -ozp / dzp
-            u = ((w[:, 0] * ox + w[:, 1] * oy + w[:, 2] * oz + w[:, 3])
-                 + t * (w[:, 0] * dx + w[:, 1] * dy + w[:, 2] * dz))
-            v = ((w[:, 4] * ox + w[:, 5] * oy + w[:, 6] * oz + w[:, 7])
-                 + t * (w[:, 4] * dx + w[:, 5] * dy + w[:, 6] * dz))
+            t, u, v = _woop_tests(wrows[visit[sel, i].long()], o, d, sel)
             ok = ((u >= 0) & (v >= 0) & (1.0 - u - v >= 0) & (t >= t_min)
                   & (t < tm[sel, :, None]))
             blocked[sel] |= ok.any(dim=2)
@@ -578,11 +616,11 @@ def any_hit(origins, dirs, t_max, wrows, visit, ventry, counts,
     dev = origins.device
     tiles, width = visit.shape
     n = tiles * tile_r
-    c, _, k = wrows.shape
+    c, k, _ = wrows.shape
     _check("origins", origins, torch.float32, (n, 3), dev)
     _check("dirs", dirs, torch.float32, (n, 3), dev)
     _check("t_max", t_max, torch.float32, (n,), dev)
-    _check("wrows", wrows, torch.float32, (c, 12, k), dev)
+    _check("wrows", wrows, torch.float32, (c, k, 12), dev)
     _check("visit", visit, torch.int32, (tiles, width), dev)
     _check("ventry", ventry, torch.float32, (tiles, width), dev)
     _check("counts", counts, torch.int32, (tiles,), dev)

@@ -1,5 +1,6 @@
 // closest_hit: the closest triangle of every ray, walking its tile's
-// near-to-far cluster list.
+// near-to-far cluster list in work items that run in parallel and merge
+// through a packed-key atomicMin.
 //
 // Replaces the TPU closest-hit kernel _make_kernel
 // (directx_raytracer_tpu/bvh/pallas_intersect.py:762-894, launched by
@@ -7,180 +8,309 @@
 // starts from its seed best t; a tile visits its binned clusters in order of
 // conservative entry distance and stops once the next entry exceeds the
 // largest best t over the tile; each visit tests the cluster's K triangles
-// through their Woop transforms, o' = W (o, 1), d' = W3 d, t = -o'_z / d'_z,
-// u = o'_x + t d'_x, v = o'_y + t d'_y, accepting min(u, v, 1-u-v) >= 0 and
-// t >= t_min, and keeps (best t, best slot).  Differences from the TPU
-// kernel, all because the card does not need them: f32 FMA instead of a
-// bf16x3 split matmul, an exact IEEE divide, (t, slot) held in registers
-// instead of packed into one int, and a CTA that walks its own ragged list
-// instead of a fixed-budget visit grid.  Ties in t go to the lower slot, so
-// the result does not depend on visit order.
+// through their Woop transforms (walk.cuh: t = -o'_z / d'_z by an exact
+// IEEE divide, accept u, v, 1-u-v >= 0 and t >= t_min), and keeps the least
+// (t, slot), ties to the lower slot.  Differences from the TPU kernel, all
+// because the card does not need them: f32 FMA instead of a bf16x3 split
+// matmul, an exact divide, and parallel work items instead of a
+// fixed-budget visit grid.
 //
-// Layout: rays (N, 3) f32 origins/dirs and (N,) seeds, tile-major, N = T *
-// tile_r.  Woop rows (C, 12, K) f32: row 4*a + j holds W[a][j] of each of
-// the K triangles.  Visit list (T, L) i32 cluster ids sorted by entry, with
-// entries (T, L) f32 and per-tile counts (T,) i32.
+// Layout: rays (N, 3) f32 origins/dirs, tile-major, N = T * tile_r; keys
+// (N,) u64, seeded by the caller with (bits(init_t) << 32) | 0.  Woop rows
+// (C, K, 12) f32 (walk.cuh).  Visit list (T, L) i32 cluster ids sorted by
+// entry, entries (T, L) f32, counts (T,) i32.  The schedule (order, offs):
+// item q at depth j (offs[j] <= q < offs[j + 1]) is tile order[q -
+// offs[j]].
 //
-// What bounds it on the card: arithmetic.  A visit reads 6 KB of Woop rows
-// (L2-resident, the 100k-triangle scene's rows are ~4.8 MB) and then spends
-// ~30 FMAs and an IEEE divide on each of tile_r x K (ray, triangle) pairs.
-// So: one CTA of 256 threads per tile, each thread owning up to 3 rays in
-// registers (768-ray tiles); the cluster's rows are staged in shared memory
-// once per visit and read by broadcast (every thread reads the same
-// triangle at the same time, so there are no bank conflicts); the per-visit
-// cost outside the pair loop is one block-wide max and two barriers.
+// What bounds it on the card.  Arithmetic, once the card is busy: a visit
+// reads 6 KB of L2-resident rows and then spends ~45 f32 operations on
+// each of tile_r x K (ray, triangle) pairs.  But a walk is serial, and a
+// few tiles of a Morton-sorted bounce batch bin hundreds of clusters (one
+// 1080p bounce tile bins 693): walked by one CTA, that tile held the launch
+// open for ~12 ms while the card idled.  So:
+// * Work items.  Each list is cut into items of `chunk` positions (depth j
+//   covers positions [j * chunk, (j + 1) * chunk)), numbered depth by
+//   depth, tiles with the most items first within a depth.  CTA 0 builds
+//   that numbering (a counting sort of the tiles by item count, in shared
+//   memory) while the other CTAs wait on a flag, so the launch needs no
+//   host sync and no torch ops; then a persistent grid (4 CTAs per SM)
+//   takes the items in order from an atomic counter, so every tile's near
+//   chunk is taken before any tile's next one.  (Scanning the (depth, tile)
+//   index space in batches instead left one CTA walking every item of its
+//   batch: 20x slower.)  A closest hit is a min over (t,
+//   slot), so items merge exactly: each ray's result is the key
+//   (bits(t) << 32) |
+//   (slot + 1), and an item lowers it with one 64-bit atomicMin per ray it
+//   improved.  t >= t_min > 0 and every seed is >= 0, so the bits of t
+//   order as the floats do, and ties go to the lower slot whatever the
+//   order of the items.  The seed's low word 0 refuses a hit at exactly
+//   t = init_t, as the serial walk does.
+// * The early-out gate of an item reads the tile's current keys (volatile
+//   loads, issued one visit ahead) before each visit: keys only fall, so
+//   the gate stays exact and tightens as the tile's near items finish.
+// * The memory path: the next cluster's rows are copied by cp.async into
+//   the other buffer of a two-buffer ring while this cluster is tested;
+//   one block barrier per visit.  Rows are read as three broadcast float4
+//   loads per triangle, shared by the thread's rays.
+// Within a CTA: 256 threads, each owning up to 3 rays (768-ray tiles) in
+// registers, held to 64 registers so that 4 CTAs fit on an SM.
 //
 // Built without --use_fast_math: t needs an exact divide, and denormals
 // must not be flushed.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include <algorithm>
+
+#include "walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using dxrt::kThreads;
+using dxrt::kWarps;
+using dxrt::Ray;
 
+constexpr int kCtasPerSm = 4;
+
+__device__ __forceinline__ float key_time(unsigned long long key) {
+  return __uint_as_float(static_cast<uint32_t>(key >> 32));
+}
+
+// Walk list positions [start, end) of one tile, merging into its keys.
 template <int kRaysPerThread>
-__global__ void __launch_bounds__(kThreads)
-closest_hit_kernel(const float* __restrict__ origins,
-                   const float* __restrict__ dirs,
-                   const float* __restrict__ init_t,
-                   const float* __restrict__ wrows,
-                   const int* __restrict__ visit,
-                   const float* __restrict__ ventry,
-                   const int* __restrict__ counts,
-                   float* __restrict__ best_t_out,
-                   int* __restrict__ best_slot_out, int tile_r, int list_len,
-                   int k, float t_min) {
-  extern __shared__ float s_w[];  // 12 * k floats: the staged cluster
-  __shared__ float s_max[kWarps];
-  const int tile = blockIdx.x;
+__device__ __forceinline__ void walk_item(
+    const float* origins, const float* dirs, const float4* wrows,
+    const int* vlist, const float* elist, unsigned long long* keys,
+    float4* s_ring, float (*s_max)[kWarps], int tile, int start, int end,
+    int tile_r, int k, float t_min) {
   const int tid = threadIdx.x;
-
-  float ox[kRaysPerThread], oy[kRaysPerThread], oz[kRaysPerThread];
-  float dx[kRaysPerThread], dy[kRaysPerThread], dz[kRaysPerThread];
-  float bt[kRaysPerThread];
+  const int pieces = 3 * k;
+  Ray ray[kRaysPerThread];
+  float bt[kRaysPerThread], kt[kRaysPerThread];
   int bs[kRaysPerThread];
+  bool improved[kRaysPerThread];
+  volatile unsigned long long* key[kRaysPerThread];
 #pragma unroll
   for (int j = 0; j < kRaysPerThread; ++j) {
     const int r = tid + j * kThreads;
     const bool live = r < tile_r;
-    const size_t ray = static_cast<size_t>(tile) * tile_r + (live ? r : 0);
-    ox[j] = origins[3 * ray];
-    oy[j] = origins[3 * ray + 1];
-    oz[j] = origins[3 * ray + 2];
-    dx[j] = dirs[3 * ray];
-    dy[j] = dirs[3 * ray + 1];
-    dz[j] = dirs[3 * ray + 2];
-    // A lane past the tile holds -inf: it never wins and never raises the
-    // tile's max.
-    bt[j] = live ? init_t[ray] : -INFINITY;
-    bs[j] = -1;
+    const size_t i = static_cast<size_t>(tile) * tile_r + (live ? r : 0);
+    ray[j] = dxrt::load_ray(origins, dirs, i);
+    key[j] = live ? keys + i : nullptr;
+    // Start from the ray's merged key: the seed (slot -1, so a hit at
+    // exactly init_t is refused) or a hit of another item.  A lane past
+    // the tile holds -inf: it never wins and never raises the gate.
+    const unsigned long long k0 = live ? *key[j] : 0ull;
+    bt[j] = live ? key_time(k0) : -INFINITY;
+    bs[j] = static_cast<int>(static_cast<uint32_t>(k0)) - 1;
+    kt[j] = bt[j];
+    improved[j] = false;
   }
 
-  const int count = counts[tile];
-  const int* vlist = visit + static_cast<size_t>(tile) * list_len;
-  const float* elist = ventry + static_cast<size_t>(tile) * list_len;
-  for (int i = 0; i < count; ++i) {
-    float m = bt[0];
+  dxrt::stage_cluster(s_ring, wrows + static_cast<size_t>(vlist[start]) * pieces,
+                      pieces);
+  int buf = 0;
+  for (int i = start; i < end; ++i, buf ^= 1) {
+    // The gate: the largest best t over the tile's rays, each the lower of
+    // this item's own and the tile's merged key.
+    float m = fminf(bt[0], kt[0]);
 #pragma unroll
-    for (int j = 1; j < kRaysPerThread; ++j) m = fmaxf(m, bt[j]);
+    for (int j = 1; j < kRaysPerThread; ++j) m = fmaxf(m, fminf(bt[j], kt[j]));
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if ((tid & 31) == 0) s_max[tid >> 5] = m;
-
-    const int cluster = vlist[i];
-    const float* w = wrows + static_cast<size_t>(cluster) * 12 * k;
-    for (int e = tid; e < 12 * k; e += kThreads) s_w[e] = w[e];
+    if ((tid & 31) == 0) s_max[buf][tid >> 5] = m;
+    dxrt::wait_staged();
+    // The one barrier of the visit: the staged rows and s_max are
+    // complete, and every thread is done with the other ring buffer.
     __syncthreads();
-
-    float tile_max = s_max[0];
+    float gate = s_max[buf][0];
 #pragma unroll
-    for (int q = 1; q < kWarps; ++q) tile_max = fmaxf(tile_max, s_max[q]);
-    // Every thread reads the same two values: the break is block-uniform.
-    if (elist[i] > tile_max) break;
+    for (int q = 1; q < kWarps; ++q) gate = fmaxf(gate, s_max[buf][q]);
+    // Every thread reads the same values: the break is block-uniform.
+    if (elist[i] > gate) break;
+    if (i + 1 < end)
+      dxrt::stage_cluster(s_ring + (buf ^ 1) * pieces,
+                          wrows + static_cast<size_t>(vlist[i + 1]) * pieces,
+                          pieces);
+    // The next gate's keys, loaded while this cluster is tested.
+#pragma unroll
+    for (int j = 0; j < kRaysPerThread; ++j)
+      if (key[j]) kt[j] = key_time(*key[j]);
 
-    const int slot0 = cluster * k;
+    const float4* w = s_ring + buf * pieces;
+    const int slot0 = vlist[i] * k;
     for (int kk = 0; kk < k; ++kk) {
-      const float w0 = s_w[kk], w1 = s_w[k + kk], w2 = s_w[2 * k + kk],
-                  w3 = s_w[3 * k + kk];
-      const float w4 = s_w[4 * k + kk], w5 = s_w[5 * k + kk],
-                  w6 = s_w[6 * k + kk], w7 = s_w[7 * k + kk];
-      const float w8 = s_w[8 * k + kk], w9 = s_w[9 * k + kk],
-                  w10 = s_w[10 * k + kk], w11 = s_w[11 * k + kk];
+      const float4 a = w[3 * kk], b = w[3 * kk + 1], c = w[3 * kk + 2];
       const int slot = slot0 + kk;
 #pragma unroll
       for (int j = 0; j < kRaysPerThread; ++j) {
-        const float ozp = w8 * ox[j] + w9 * oy[j] + w10 * oz[j] + w11;
-        const float dzp = w8 * dx[j] + w9 * dy[j] + w10 * dz[j];
-        const float t = -ozp / dzp;
-        const float u = (w0 * ox[j] + w1 * oy[j] + w2 * oz[j] + w3) +
-                        t * (w0 * dx[j] + w1 * dy[j] + w2 * dz[j]);
-        const float v = (w4 * ox[j] + w5 * oy[j] + w6 * oz[j] + w7) +
-                        t * (w4 * dx[j] + w5 * dy[j] + w6 * dz[j]);
-        // NaN t or barycentrics fail every compare.
-        const bool accept = u >= 0.f && v >= 0.f && 1.f - u - v >= 0.f &&
-                            t >= t_min &&
-                            (t < bt[j] || (t == bt[j] && slot < bs[j]));
-        if (accept) {
+        float t;
+        if (dxrt::woop_test(a, b, c, ray[j], t_min, t) &&
+            (t < bt[j] || (t == bt[j] && slot < bs[j]))) {
           bt[j] = t;
           bs[j] = slot;
+          improved[j] = true;
         }
       }
     }
-    __syncthreads();  // s_w and s_max are rewritten by the next visit
   }
 
 #pragma unroll
-  for (int j = 0; j < kRaysPerThread; ++j) {
-    const int r = tid + j * kThreads;
-    if (r < tile_r) {
-      const size_t ray = static_cast<size_t>(tile) * tile_r + r;
-      best_t_out[ray] = bt[j];
-      best_slot_out[ray] = bs[j];
+  for (int j = 0; j < kRaysPerThread; ++j)
+    if (improved[j])
+      atomicMin(const_cast<unsigned long long*>(key[j]),
+                (static_cast<unsigned long long>(__float_as_uint(bt[j])) << 32) |
+                    static_cast<uint32_t>(bs[j] + 1));
+}
+
+// CTA 0's first task: the work-item schedule.  items_t = ceil(counts[t] /
+// chunk) for every tile; offs[j] = the number of items at depths below j
+// (offs[j + 1] - offs[j] = the tiles with items_t > j); order = the tiles
+// with items_t > 0, most items first (a counting sort).  hist is scratch
+// shared memory of n_depths + 1 ints.
+__device__ void build_schedule(const int* counts, int n_tiles, int n_depths,
+                               int chunk, int* hist, int* order, int* offs) {
+  const int tid = threadIdx.x;
+  for (int v = tid; v <= n_depths; v += kThreads) hist[v] = 0;
+  __syncthreads();
+  for (int t = tid; t < n_tiles; t += kThreads)
+    atomicAdd(&hist[(counts[t] + chunk - 1) / chunk], 1);
+  __syncthreads();
+  if (tid == 0) {
+    // hist[v] becomes the tiles with more than v items: where the tiles
+    // with exactly v items start in order, and the items at depth v.
+    int above = 0;
+    for (int v = n_depths; v >= 0; --v) {
+      const int h = hist[v];
+      hist[v] = above;
+      above += h;
     }
+    offs[0] = 0;
+    for (int j = 0; j < n_depths; ++j) offs[j + 1] = offs[j] + hist[j];
+  }
+  __syncthreads();
+  for (int t = tid; t < n_tiles; t += kThreads) {
+    const int v = (counts[t] + chunk - 1) / chunk;
+    if (v > 0) order[atomicAdd(&hist[v], 1)] = t;
   }
 }
 
 template <int kRaysPerThread>
-void launch(const float* origins, const float* dirs, const float* init_t,
-            const float* wrows, const int* visit, const float* ventry,
-            const int* counts, float* best_t, int* best_slot, int n_tiles,
-            int tile_r, int list_len, int k, float t_min,
-            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 12 * k;
-  closest_hit_kernel<kRaysPerThread><<<n_tiles, kThreads, smem, stream>>>(
-      origins, dirs, init_t, wrows, visit, ventry, counts, best_t, best_slot,
-      tile_r, list_len, k, t_min);
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+closest_hit_kernel(const float* __restrict__ origins,
+                   const float* __restrict__ dirs,
+                   const float4* __restrict__ wrows,
+                   const int* __restrict__ visit,
+                   const float* __restrict__ ventry,
+                   const int* __restrict__ counts, int* order, int* offs,
+                   int* sched, unsigned long long* keys, int n_tiles,
+                   int n_depths, int tile_r, int list_len, int k, float t_min,
+                   int chunk) {
+  extern __shared__ float4 s_ring[];  // two buffers of 3 * k float4
+  __shared__ float s_max[2][kWarps];
+  __shared__ int s_item;
+  const int tid = threadIdx.x;
+  // sched[0]: set once the schedule is built; sched[1]: the next item.
+  volatile int* ready = sched;
+  if (blockIdx.x == 0) {
+    build_schedule(counts, n_tiles, n_depths, chunk,
+                   reinterpret_cast<int*>(s_ring), order, offs);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) *ready = 1;
+  } else {
+    // CTA 0 is dispatched first and never waits, so this wait ends; the
+    // schedule is read after it, through L2 (__ldcg).
+    if (tid == 0)
+      while (*ready == 0) __nanosleep(256);
+    __syncthreads();
+    __threadfence();
+  }
+  const int n_items = __ldcg(offs + n_depths);
+  int depth = 0;
+
+  for (;;) {
+    if (tid == 0) s_item = atomicAdd(sched + 1, 1);
+    __syncthreads();
+    const int item = s_item;
+    // Every thread has read s_item and left the previous item's walk (its
+    // ring and s_max) before anyone writes them again.
+    __syncthreads();
+    if (item >= n_items) return;
+    // Items are taken in increasing order, so a CTA's depth only grows.
+    while (__ldcg(offs + depth + 1) <= item) ++depth;
+    const int tile = __ldcg(order + item - __ldcg(offs + depth));
+    const int start = depth * chunk;
+    walk_item<kRaysPerThread>(
+        origins, dirs, wrows, visit + static_cast<size_t>(tile) * list_len,
+        ventry + static_cast<size_t>(tile) * list_len, keys, s_ring, s_max,
+        tile, start, min(start + chunk, counts[tile]), tile_r, k, t_min);
+  }
+}
+
+template <int kRaysPerThread>
+int launch(const float* origins, const float* dirs, const float* wrows,
+           const int* visit, const float* ventry, const int* counts,
+           int* order, int* offs, int* sched, unsigned long long* keys,
+           int n_tiles, int n_depths, int tile_r, int list_len, int k,
+           float t_min, int chunk, cudaStream_t stream) {
+  const auto kernel = closest_hit_kernel<kRaysPerThread>;
+  const size_t smem = sizeof(float4) * 2 * 3 * k;
+  // The CTAs that fit on the card at once, asked once per device and k:
+  // every CTA of the grid is resident, so none waits for an undispatched
+  // CTA 0.
+  static int cached_dev = -1, cached_k = -1, resident = 1;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != cached_dev || k != cached_k) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                  smem);
+    resident = std::max(1, sms * std::min(per_sm, kCtasPerSm));
+    cached_dev = dev;
+    cached_k = k;
+  }
+  const long long max_items = static_cast<long long>(n_tiles) * n_depths;
+  const int grid =
+      static_cast<int>(std::max(1LL, std::min<long long>(max_items, resident)));
+  kernel<<<grid, kThreads, smem, stream>>>(
+      origins, dirs, reinterpret_cast<const float4*>(wrows), visit, ventry,
+      counts, order, offs, sched, keys, n_tiles, n_depths, tile_r, list_len,
+      k, t_min, chunk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// tile_r must lie in [1, 768]: a thread owns at most 3 rays.
+// tile_r must lie in [1, 768]: a thread owns at most 3 rays.  n_depths =
+// ceil(list_len / chunk); CTA 0's counting sort takes n_depths + 1 ints of
+// the ring's shared memory (at most 24 k); two buffers of a cluster's
+// 3 * k float4 must fit the default 48 KB (k <= 256).  order (T,) and offs
+// (n_depths + 1,) i32 are scratch; sched is two zeroed ints.
 extern "C" int dxrt_closest_hit(const float* origins, const float* dirs,
-                                const float* init_t, const float* wrows,
-                                const int* visit, const float* ventry,
-                                const int* counts, float* best_t,
-                                int* best_slot, int n_tiles, int tile_r,
-                                int list_len, int k, float t_min,
-                                cudaStream_t stream) {
+                                const float* wrows, const int* visit,
+                                const float* ventry, const int* counts,
+                                int* order, int* offs, int* sched,
+                                unsigned long long* keys, int n_tiles,
+                                int n_depths, int tile_r, int list_len, int k,
+                                float t_min, int chunk, cudaStream_t stream) {
+  if (chunk < 1 || k < 1 || k > 256 || n_depths < 0 ||
+      n_depths + 1 > 24 * k)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch ((tile_r + kThreads - 1) / kThreads) {
     case 1:
-      launch<1>(origins, dirs, init_t, wrows, visit, ventry, counts, best_t,
-                best_slot, n_tiles, tile_r, list_len, k, t_min, stream);
-      break;
+      return launch<1>(origins, dirs, wrows, visit, ventry, counts, order,
+                       offs, sched, keys, n_tiles, n_depths, tile_r, list_len,
+                       k, t_min, chunk, stream);
     case 2:
-      launch<2>(origins, dirs, init_t, wrows, visit, ventry, counts, best_t,
-                best_slot, n_tiles, tile_r, list_len, k, t_min, stream);
-      break;
+      return launch<2>(origins, dirs, wrows, visit, ventry, counts, order,
+                       offs, sched, keys, n_tiles, n_depths, tile_r, list_len,
+                       k, t_min, chunk, stream);
     case 3:
-      launch<3>(origins, dirs, init_t, wrows, visit, ventry, counts, best_t,
-                best_slot, n_tiles, tile_r, list_len, k, t_min, stream);
-      break;
+      return launch<3>(origins, dirs, wrows, visit, ventry, counts, order,
+                       offs, sched, keys, n_tiles, n_depths, tile_r, list_len,
+                       k, t_min, chunk, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

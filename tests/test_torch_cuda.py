@@ -27,7 +27,10 @@ import torch
 from directx_raytracer_tpu_torch import testscenes
 from directx_raytracer_tpu_torch.bvh import TILE_R, build_bvh, intersect_fused
 from directx_raytracer_tpu_torch.bvh import cuda_intersect as ci
-from directx_raytracer_tpu_torch.models.scene import build_device_scene
+from directx_raytracer_tpu_torch.models.scene import (
+    _woop_transforms,
+    build_device_scene,
+)
 from directx_raytracer_tpu_torch.ops.rays import generate_rays_tiled, pick_schedule
 from directx_raytracer_tpu_torch.ops.intersect import occluded_bruteforce
 from directx_raytracer_tpu_torch.render.debug import render_debug
@@ -72,14 +75,13 @@ def test_bin_kernel_matches_plain(x):
     assert torch.equal(entry[overlap], x["entry"][overlap])
 
 
-@pytest.mark.parametrize("tile_r", [768, 256, 100])
-def test_closest_kernel_matches_plain(x, tile_r):
+def closest_vs_plain(x, tile_r, chunk=ci.CLOSEST_CHUNK):
     n = x["o"].shape[0] // tile_r * tile_r
     o, d, t_init = x["o"][:n], x["d"][:n], x["t_init"][:n]
     tp = ci.tile_params(o, d, tile_r)
     lists = ci.visit_lists(*ci.bin_clusters_plain(tp, x["cb"]))
     args = (o, d, t_init, x["bvh"].wrows, *lists, tile_r)
-    bt_k, bs_k = ci.closest_hit(*args)
+    bt_k, bs_k = ci.closest_hit(*args, chunk=chunk)
     bt_p, bs_p = ci.closest_hit_plain(*args)
     torch.cuda.synchronize()
     hk, hp = bs_k >= 0, bs_p >= 0
@@ -89,6 +91,69 @@ def test_closest_kernel_matches_plain(x, tile_r):
     assert (bs_k[both] == bs_p[both]).float().mean() >= 0.99
     rel = (bt_k[both] - bt_p[both]).abs() / bt_p[both]
     assert (rel <= 1e-5).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("tile_r", [768, 256, 100])
+def test_closest_kernel_matches_plain(x, tile_r):
+    closest_vs_plain(x, tile_r)
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+@pytest.mark.parametrize("tile_r", [768, 256, 100])
+def test_closest_kernel_split_lists_match_plain(x, tile_r, chunk):
+    """Lists cut into work items of 1 or 3 positions, merged by the
+    packed-key atomicMin: the same gates against the plain walk."""
+    closest_vs_plain(x, tile_r, chunk)
+
+
+def tie_tile(order, device, init_t=100.0):
+    """One 32-ray tile over two clusters that hold the same triangle, at
+    slots 5 (cluster 0) and K + 3 (cluster 1), visited in ``order``."""
+    k, tile_r = 128, 32
+    woop = np.zeros((2, k, 3, 4), np.float32)
+    woop[..., 3] = -1e30  # guaranteed-miss sentinels
+    tri = _woop_transforms(np.array([[-1.0, -1.0, 0.0]], np.float32),
+                           np.array([[2.0, 0.0, 0.0]], np.float32),
+                           np.array([[1.0, 2.0, 0.0]], np.float32))[0]
+    woop[0, 5], woop[1, 3] = tri, tri
+    rng = np.random.default_rng(3)
+    o = np.zeros((tile_r, 3), np.float32)
+    o[:, :2] = rng.uniform(-0.3, 0.3, (tile_r, 2))
+    o[:, 2] = 2.0
+    d = np.tile(np.array([[0.0, 0.0, -1.0]], np.float32), (tile_r, 1))
+    t = torch.as_tensor(init_t, dtype=torch.float32).expand(tile_r)
+    return tuple(a.to(device) if torch.is_tensor(a) else a for a in (
+        torch.from_numpy(o), torch.from_numpy(d), t.contiguous(),
+        torch.from_numpy(woop).reshape(2, k, 12),
+        torch.tensor([order], dtype=torch.int32), torch.zeros((1, 2)),
+        torch.tensor([2], dtype=torch.int32), tile_r))
+
+
+@pytest.mark.parametrize("order", [[1, 0], [0, 1]])
+def test_closest_kernel_tie_across_items(cuda, order):
+    """The two clusters fall in different work items (chunk 1): the lower
+    slot wins whatever order the items merge in, as in the plain walk."""
+    args = tie_tile(order, cuda)
+    bt_k, bs_k = ci.closest_hit(*args, chunk=1)
+    bt_p, bs_p = ci.closest_hit_plain(*args)
+    torch.cuda.synchronize()
+    assert (bs_p == 5).all() and torch.equal(bs_k, bs_p)
+    assert torch.equal(bt_k, bt_p)
+
+
+@pytest.mark.parametrize("chunk", [1, 8])
+def test_closest_kernel_refuses_a_hit_at_the_seed(cuda, chunk):
+    """A hit at exactly t = init_t is refused (the seed's low word is 0);
+    one ulp further, the seed lets it through."""
+    t_hit, _ = ci.closest_hit_plain(*tie_tile([0, 1], cuda))
+    t_hit = float(t_hit[0])
+    bt, bs = ci.closest_hit(*tie_tile([0, 1], cuda, t_hit), chunk=chunk)
+    torch.cuda.synchronize()
+    assert (bs == -1).all() and (bt == t_hit).all()
+    above = float(np.nextafter(np.float32(t_hit), np.float32(np.inf)))
+    bt, bs = ci.closest_hit(*tie_tile([0, 1], cuda, above), chunk=chunk)
+    torch.cuda.synchronize()
+    assert (bs == 5).all() and (bt == t_hit).all()
 
 
 def test_wrappers_count_launches(x):
@@ -165,6 +230,19 @@ def test_any_hit_kernel_matches_plain(x):
     brute = occluded_bruteforce(o, d, x["bvh"].clusters.woop.reshape(-1, 3, 4),
                                 t_max)
     assert (got == brute).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("tile_r", [256, 100])
+def test_any_hit_kernel_tile_r_matches_plain(x, tile_r):
+    """One ray per thread in 256-thread CTAs: full and partial tiles."""
+    o, d, t_max, *lists = ci.anyhit_schedule(*shadow_batch(x),
+                                             x["bvh"].clusters, tile_r)
+    args = (o, d, t_max, x["bvh"].wrows, *lists, tile_r)
+    got = ci.any_hit(*args)
+    want = ci.any_hit_plain(*args)
+    torch.cuda.synchronize()
+    assert (got == want).float().mean() >= 0.999
+    assert want.any() and (~want).any()
 
 
 def test_occluded_fused_kernels_match_plain(x):

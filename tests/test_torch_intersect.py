@@ -274,7 +274,7 @@ def test_closest_tie_goes_to_lower_slot(order):
     woop[..., 3] = -1e30  # guaranteed-miss sentinels
     tri = _woop_transforms(v0, e1, e2)[0]
     woop[0, 5], woop[1, 3] = tri, tri
-    wrows = torch.from_numpy(woop).reshape(2, k, 12).transpose(1, 2).contiguous()
+    wrows = torch.from_numpy(woop).reshape(2, k, 12)
     rng = np.random.default_rng(3)
     o = np.zeros((tile_r, 3), np.float32)
     o[:, :2] = rng.uniform(-0.3, 0.3, (tile_r, 2))

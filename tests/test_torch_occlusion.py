@@ -195,7 +195,7 @@ def test_plain_walks_count_their_work(fx):
     """``stats`` of the plain walks: the (tile, cluster) pairs the
     early-out leaves and the (ray, triangle) tests they need, without
     changing the result."""
-    k = fx.wrows.shape[2]
+    k = fx.wrows.shape[1]
     o, d, t_init = ci.pad_and_seed(fx.o, fx.d, fx.cs, ci.TILE_R)
     visit, ventry, counts = ci.visit_lists(*ci.bin_clusters_plain(
         ci.tile_params(o, d, ci.TILE_R), fx.cb))
