@@ -12,9 +12,11 @@ Phases, each of which raises (exit code != 0) on failure:
 2. build the five CUDA kernels' sources in csrc/ (one nvcc per source,
    all started together, then one link; seconds and the build log
    printed);
-3. bin_clusters and closest_hit against their plain torch versions on the
-   card, at the shapes the main path gives them, on bench_scene(3_000) at
-   96x48 and bench_scene(100_000) at 1920x1080 (the primary batch);
+3. the binning kernel (bin_lists) and closest_hit against their plain
+   torch versions on the card, at the shapes the main path gives them, on
+   bench_scene(3_000) at 96x48 and bench_scene(100_000) at 1920x1080 (the
+   primary batch); the binning kernel's lists must equal bin_lists_plain's
+   exactly;
 4. the debug path: Renderer(bench_scene(100_000), 1920, 1080,
    device="cuda").render_frame(mode) for modes 0-6, with launch counters
    reset just before and read just after; frames must be finite and hit
@@ -25,18 +27,22 @@ Phases, each of which raises (exit code != 0) on failure:
 6. the Whitted path: any_hit against its plain version on a 3k/96x48
    shadow batch; then one 1080p/100k Whitted frame whose batches are
    captured where the frame hands them over (the intersector's calls and
-   the occluder's, with the launches each made): any_hit at the primary
+   the occluder's, with the launches each made): the binning kernel at the
+   bounce pass's batch and both shadow batches, any_hit at the primary
    and the bounce pass's shadow batches and closest_hit at the bounce
    pass's batch, each against its plain version and timed beside its
    bound; then the same Renderer's render_whitted_frame(max_depth=3) with
    counters reset just before and read just after (bin_clusters,
    closest_hit and any_hit must launch), checked against the frame
    rendered through the plain versions, one PNG, and its frame time;
-7. the 1M path: bin_clusters_super against its plain version and the dense
-   kernel at bench_scene(1_000_000) 1080p shapes, then
+7. the 1M path: the binning kernel's superblock mode against its plain
+   version and its dense mode at bench_scene(1_000_000) 1080p shapes, and
+   a synthetic tile listing ~38,000 of 40,000 random boxes (more than the
+   kernel sorts in shared memory) in both modes against the plain version;
+   then
    Renderer(bench_scene(1_000_000), 1920, 1080,
-   device="cuda").render_frame(5) with counters (bin_clusters_super must
-   launch), checked against the plain-version frame, closest_hit against
+   device="cuda").render_frame(5) with counters (the superblock mode,
+   "bin_clusters_super", must launch), checked against the plain-version frame, closest_hit against
    its plain version at the 1M primary batch, and the frame timed;
 8. the precision micro: its entry point (tools.precision_micro.main, the
    kernel's three variants at the tool's shapes, S = 2048 steps) with its
@@ -48,12 +54,19 @@ Each kernel's line in the kernels JSON also carries its bound (the least
 time the card could take for the same work: bytes over the memory rate or
 operations over the peak rate, whichever is larger, computed from this
 run's inputs; for closest_hit and any_hit from the pairs their plain walks
-visit) and library_ms: null, since no single PyTorch call computes any of
-these functions.  closest_hit's and any_hit's lines also carry "batches",
-one record per batch they serve (ms, plain_ms, bound_ms, bound_by and the
-launches on its path); their top-level numbers are the primary batch's.
-Each batch prints its work items, longest list, visited of binned pairs
-and (ray, triangle) tests.
+visit, for the binning kernel from its slab tests and its sorting
+networks' compare-exchanges) and library_ms: null, since no single PyTorch
+call computes any of these functions.  The lines of bin_clusters (the
+binning kernel's dense mode), bin_clusters_super (its superblock mode),
+closest_hit and any_hit also carry "batches", one record per batch they
+serve (ms, plain_ms, bound_ms, bound_by and the launches on its path; the
+binning records also the layer's ms: the wrapper with its host sync, by
+CUDA events); their top-level numbers are
+the first batch's.  Each walk batch prints its work items, longest list,
+visited of binned pairs and (ray, triangle) tests.  The binning kernel's
+ms is its device time from the profiler (torch.profiler's CUDA kernel
+records): CUDA events around one call of a launch this short would time
+the host's enqueue.
 
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {...}}.
@@ -70,6 +83,8 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from directx_raytracer_tpu_torch import testscenes
 from directx_raytracer_tpu_torch.bvh import TILE_R, build_bvh, intersect_fused
@@ -77,7 +92,7 @@ from directx_raytracer_tpu_torch.bvh import cuda_intersect as ci
 from directx_raytracer_tpu_torch.models.scene import build_device_scene
 from directx_raytracer_tpu_torch.ops.debug_shading import MISS_COLOR
 from directx_raytracer_tpu_torch.ops.intersect import hit_record
-from directx_raytracer_tpu_torch.ops.rays import generate_rays_tiled, pick_schedule
+from directx_raytracer_tpu_torch.ops.rays import T_MIN, generate_rays_tiled, pick_schedule
 from directx_raytracer_tpu_torch.render.debug import render_debug
 from directx_raytracer_tpu_torch.render.renderer import Renderer
 from directx_raytracer_tpu_torch.render.whitted import render_whitted
@@ -95,11 +110,10 @@ WHITTED_REPS = 5
 HUGE_REPS = 5
 
 # Tolerances, kernel vs plain version on the same card and inputs:
-# * bin_clusters computes the plain version's ops in the same order with
-#   IEEE divides, so it should agree exactly; 99.99% of overlap flags and
-#   1e-6 relative on entries leave room only for a NaN-ordering corner.
-BIN_OVERLAP_AGREE = 0.9999
-BIN_ENTRY_RTOL = 1e-6
+# * the binning kernel computes the plain version's slab ops in the same
+#   order with IEEE divides and sorts by one total order (entry, then
+#   cluster id), so its lists must equal bin_lists_plain's exactly: widths,
+#   counts, ids and entry bits.
 # * closest_hit contracts a*b+c into FMAs where the plain version rounds
 #   twice, so t differs by a few ulps and a triangle edge hit exactly can
 #   flip: hit/miss 99.9%, same winner 99%, t within 1e-5 relative on 99.9%
@@ -117,9 +131,6 @@ PIXEL_AGREE = 0.99
 #   a triangle edge may flip: blocked flags agree on >= 99.9% of rays, the
 #   reference's own occlusion gate (tests/test_pallas_interpret.py:77).
 BLOCKED_AGREE = 0.999
-# * bin_clusters_super runs the dense kernel's slab routine: overlaps and
-#   entries equal its plain version and the dense kernel exactly (entries
-#   where both overlap), so the gates are 1.0 and 0.
 # * Whitted frames vs the plain-version frame: the pixel gate above, and
 #   alive rays per pass within 0.1% of the pixel count (a flipped hit or
 #   shadow verdict moves at most a few bounce rays).
@@ -144,17 +155,20 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 # f32 operations per unit of work, counted from the kernels' sources:
-# * one slab test of a (tile, box) pair (bin_clusters.cu ``slab``): per
-#   axis 2 subtracts, 3 for the sign test, 2 divides with their selects, 4
-#   multiplies, 8 clips and 8 min/max; then 6 for t_min, the overlap
-#   compares and the divide by len_hi;
-SLAB_OPS = 93
+# * one slab test of a (tile, box) pair (bin_clusters.cu ``slab``; the
+#   reciprocals are the tile's): per axis 2 subtracts, 4 multiplies, 6
+#   min/max, 2 clips of 2 each and 2 to fold into entry and exit; then 6
+#   for t_min and the overlap compares;
+SLAB_OPS = 60
 # * one (ray, triangle) Woop test (csrc/walk.cuh ``woop_test``): 17
 #   multiply-adds and 3 multiplies, a negate and a divide, 2 subtracts and
 #   5 compares;
 PAIR_TEST_OPS = 46
 # * one candidate of the precision micro's tail (precision_micro.cu).
 FOLD_TAIL_OPS = 14
+# * one compare-exchange of the binning kernel's sorting networks (a 64-bit
+#   compare and its select).
+SORT_CE_OPS = 1
 
 
 def bound(nbytes: float, f32_ops: float, bf16_ops: float = 0.0):
@@ -193,6 +207,24 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, name: str, reps: int = KERNEL_REPS) -> float:
+    """Median device time of the kernel ``name`` over ``reps`` calls of
+    ``fn`` (each launching it once), from torch.profiler's CUDA kernel
+    records: no host time in it."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    # The profiler may miss a record at the start of its window.
+    require(reps // 2 <= len(times) <= reps,
+            f"the profiler saw {len(times)} launches of {name} in {reps} calls")
+    return float(np.median(times))
+
+
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
@@ -213,31 +245,116 @@ def kernel_inputs(n_tris, width, height, device):
                 tile_r=tile_r, bvh=bvh, lights=scene.lights)
 
 
-def check_bin(x, label):
-    e_k, o_k = ci.bin_clusters(x["tp"], x["cb"])
-    e_p, o_p = ci.bin_clusters_plain(x["tp"], x["cb"])
+def lists_equal(got, want) -> bool:
+    """The kernel's stride-C lists against the plain version's compact
+    ones: widths, counts, and each row's first counts[t] positions (ids,
+    and entries as bits)."""
+    visit, ventry, counts, width = got
+    w_visit, w_ventry, w_counts, w_width = want
+    if width != w_width or not torch.equal(counts, w_counts):
+        return False
+    mine = torch.arange(width, device=counts.device) < counts[:, None]
+    return (torch.equal(visit[:, :width][mine], w_visit[mine])
+            and torch.equal(ventry[:, :width][mine].view(torch.int32),
+                            w_ventry[mine].view(torch.int32)))
+
+
+def sort_ces(counts) -> int:
+    """Compare-exchanges of the binning kernel's bitonic networks for these
+    lists: (p / 2) L (L + 1) / 2 for a list of n >= 2 keys, p = 2^L the
+    power of two at or above n."""
+    n = counts.long()
+    n = n[n >= 2]
+    if n.numel() == 0:
+        return 0
+    lg = torch.ceil(torch.log2(n.double())).long()
+    return int(((1 << lg) // 2 * lg * (lg + 1) // 2).sum())
+
+
+def bin_work(tp, cb, sb, counts):
+    """(bound, slab tests, compare-exchanges) of one binning launch: the
+    bytes are the params and rows read once and the lists and counts
+    written; the operations the slab tests (every pair in dense mode; every
+    hull, then the clusters of each overlapping superblock) and the
+    sort."""
+    tiles, c = tp.shape[0], cb.shape[1]
+    if sb is None:
+        tests = tiles * c
+    else:
+        _, s_ovl = ci.bin_clusters_plain(tp, sb)
+        sizes = torch.full((sb.shape[1],), float(ci.SUPER_BLOCK), device=tp.device)
+        sizes[-1] = c - ci.SUPER_BLOCK * (sb.shape[1] - 1)
+        tests = s_ovl.numel() + int((s_ovl.float() @ sizes).sum())
+    ces = sort_ces(counts)
+    moved = (nbytes(tp, cb) + (0 if sb is None else nbytes(sb))
+             + 8 * int(counts.sum()) + 4 * (tiles + 1))
+    return bound(moved, tests * SLAB_OPS + ces * SORT_CE_OPS), tests, ces
+
+
+def check_lists(label, tp, cb, sb=None):
+    """The binning kernel against bin_lists_plain on one batch (in
+    superblock mode also its dense mode): equal, or a failure.  Returns
+    the plain lists and the largest entry difference (0)."""
+    mode = "dense" if sb is None else "super"
+    want = ci.bin_lists_plain(tp, cb, sb)
+    runs = [ci.bin_lists(tp, cb, sb, mode=mode)]
+    if sb is not None:
+        runs.append(ci.bin_lists(tp, cb, mode="dense"))
     torch.cuda.synchronize()
-    agree = (o_k == o_p).float().mean().item()
-    both = o_k & o_p
-    err = (e_k[both] - e_p[both]).abs()
-    rel = (err / e_p[both].abs()).max().item() if both.any() else 0.0
-    max_abs = err.max().item() if both.any() else 0.0
-    print(f"[{label}] bin_clusters: {tuple(o_k.shape)} pairs, "
-          f"{int(o_p.sum())} overlapping, overlap agreement {agree:.6f}, "
-          f"entry max rel err {rel:.3e}")
-    require(agree >= BIN_OVERLAP_AGREE, f"bin_clusters overlap agreement {agree}")
-    require(rel <= BIN_ENTRY_RTOL, f"bin_clusters entry rel err {rel}")
-    return e_p, o_p, max_abs
+    ok = all(lists_equal(got, want) for got in runs)
+    visit, ventry, counts, width = runs[0]
+    mine = torch.arange(width, device=tp.device) < counts[:, None]
+    err = ((ventry[:, :width][mine] - want[1][mine]).abs().max().item()
+           if ok and width else 0.0)
+    print(f"[{label}] bin_lists ({mode}): {tp.shape[0]} tiles x {cb.shape[1]} "
+          f"clusters, {int(want[2].sum())} listed, longest list {want[3]}; "
+          f"equal to bin_lists_plain"
+          f"{' and to the dense mode' if sb is not None else ''}: {ok}")
+    require(ok, f"bin_lists differs from its plain version at the {label} batch")
+    return want, err
+
+
+def bin_batch(label, tp, cb, sb, launches, card):
+    """check_lists, then the kernel timed beside its bound on this batch.
+    Returns the batch's record, the plain lists and the entry error."""
+    want, err = check_lists(label, tp, cb, sb)
+    (bound_ms, bound_by), tests, ces = bin_work(tp, cb, sb, want[2])
+    mode = "dense" if sb is None else "super"
+    kernel = "bin_lists_kernel"
+    rec = dict(
+        batch=label, launches=launches,
+        ms=device_ms(lambda: ci.launch_bin_lists(tp, cb, sb), kernel),
+        layer_ms=time_ms(lambda: ci.bin_lists(tp, cb, sb, mode=mode),
+                         KERNEL_REPS),
+        plain_ms=time_ms(lambda: ci.bin_lists_plain(tp, cb, sb), PLAIN_REPS,
+                         warmup=1),
+        bound_ms=bound_ms, bound_by=bound_by)
+    if sb is not None:
+        rec["dense_ms"] = device_ms(lambda: ci.launch_bin_lists(tp, cb), kernel)
+    print(f"bin_lists ({mode}) at the {label} batch: kernel {rec['ms']:.4f} ms "
+          + (f"(dense mode {rec['dense_ms']:.4f} ms) " if sb is not None else "")
+          + f"(device time, profiler), layer with its host sync "
+          f"{rec['layer_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms (medians, "
+          f"CUDA events), bound {bound_ms:.4f} ms ({bound_by}: {tests} slab "
+          f"tests, {ces} compare-exchanges), {launches} launches on its path "
+          f"[{card}]")
+    return rec, want, err
 
 
 def closest_args(o, d, bvh, tile_r):
     """The closest_hit operands of a ray batch, as intersect_fused builds
     them (the lists binned by the plain binner)."""
     o, d, t_init = ci.pad_and_seed(o, d, bvh.clusters, tile_r)
-    entry, overlap = ci.bin_clusters(ci.tile_params(o, d, tile_r),
-                                     ci.cluster_rows(bvh.clusters), bvh.srows,
-                                     plain=True)
-    return (o, d, t_init, bvh.wrows, *ci.visit_lists(entry, overlap), tile_r)
+    lists = ci.bin_lists(ci.tile_params(o, d, tile_r),
+                         ci.cluster_rows(bvh.clusters), bvh.srows, plain=True)
+    return (o, d, t_init, bvh.wrows, *lists[:3], tile_r)
+
+
+def walk_bytes(args) -> int:
+    """The bytes a walk must move: rays, rows, counts and each listed
+    (id, entry) once."""
+    counts = args[6]
+    return nbytes(*args[:4], counts) + 8 * int(counts.sum())
 
 
 def closest_items(counts) -> int:
@@ -273,7 +390,7 @@ def check_closest(args, label):
     require(winner >= WINNER_AGREE, f"closest_hit winner agreement {winner}")
     require(t_share >= T_RTOL_SHARE, f"closest_hit t agreement {t_share}")
     n = args[0].shape[0]
-    walk_bound = bound(nbytes(*args[:7]) + 8 * n, work["tests"] * PAIR_TEST_OPS)
+    walk_bound = bound(walk_bytes(args) + 8 * n, work["tests"] * PAIR_TEST_OPS)
     return max_abs, walk_bound
 
 
@@ -307,21 +424,17 @@ def kernels_vs_plain(device, card):
     for label, (n_tris, width, height) in (("3k 96x48", SMALL_SCENE),
                                            ("100k 1080p", BIG_SCENE)):
         x = kernel_inputs(n_tris, width, height, device)
-        e_p, o_p, bin_err = check_bin(x, label)
-        args = (x["o"], x["d"], x["t_init"], x["wrows"],
-                *ci.visit_lists(e_p, o_p), x["tile_r"])
         if (n_tris, width, height) != BIG_SCENE:
-            check_closest(args, label)
+            lists, _ = check_lists(label, x["tp"], x["cb"])
+            check_closest((x["o"], x["d"], x["t_init"], x["wrows"], *lists[:3],
+                           x["tile_r"]), label)
             continue
-        tiles, c = e_p.shape
-        bin_bound = bound(nbytes(x["tp"], x["cb"]) + 5 * tiles * c,
-                          tiles * c * SLAB_OPS)
-        records["bin_clusters"] = dict(
-            max_abs_err=bin_err,
-            ms=time_ms(lambda: ci.bin_clusters(x["tp"], x["cb"]), KERNEL_REPS),
-            plain_ms=time_ms(lambda: ci.bin_clusters_plain(x["tp"], x["cb"]),
-                             PLAIN_REPS),
-            bound_ms=bin_bound[0], bound_by=bin_bound[1], library_ms=None)
+        rec, lists, bin_err = bin_batch("100k 1080p primary", x["tp"], x["cb"],
+                                        None, 0, card)
+        records["bin_clusters"] = dict(max_abs_err=bin_err, library_ms=None,
+                                       batches=[rec])
+        args = (x["o"], x["d"], x["t_init"], x["wrows"], *lists[:3],
+                x["tile_r"])
         batch, hit_err = closest_batch(args, "100k 1080p primary", 0, card)
         records["closest_hit"] = dict(
             max_abs_err=hit_err, ms=batch["ms"], plain_ms=batch["plain_ms"],
@@ -433,7 +546,7 @@ def check_any_hit(args, label, must_block=True):
     require(agree >= BLOCKED_AGREE, f"any_hit blocked agreement {agree}")
     require(int(b_p.sum()) > 0 or not must_block,
             "the shadow batch blocks no ray")
-    walk_bound = bound(nbytes(*args[:7], *items) + b_k.numel(),
+    walk_bound = bound(walk_bytes(args) + nbytes(*items) + b_k.numel(),
                        work["tests"] * PAIR_TEST_OPS)
     return float((b_k != b_p).any()), walk_bound
 
@@ -465,21 +578,23 @@ def whitted_path(r, card):
     # each call made.
     rays, shadows = [], []
 
+    def launched(before):
+        return {k: v - before[k] for k, v in ci.LAUNCHES.items()}
+
     def capturing_isect(o, d, geo, tile_r=None):
-        before = ci.LAUNCHES["closest_hit"]
+        before = dict(ci.LAUNCHES)
         hit = r.intersect_fn(o, d, geo, tile_r=tile_r)
-        rays.append((o.clone(), d.clone(), tile_r or TILE_R,
-                     ci.LAUNCHES["closest_hit"] - before))
+        rays.append((o.clone(), d.clone(), tile_r or TILE_R, launched(before)))
         return hit
 
     def capturing_occ(geo):
         occluded = r.occluder_factory(geo)
 
         def occ(o, d, t_max):
-            before = ci.LAUNCHES["any_hit"]
+            before = dict(ci.LAUNCHES)
             blocked = occluded(o, d, t_max)
             shadows.append((o.clone(), d.clone(), t_max.clone(),
-                            ci.LAUNCHES["any_hit"] - before))
+                            launched(before)))
             return blocked
         return occ
 
@@ -491,15 +606,30 @@ def whitted_path(r, card):
             f"{len(shadows)} occluder calls, expected a bounce pass")
     require(shadows[0][0].shape == (r.dscene.lights.n_lights * width * height, 3),
             f"primary shadow batch shape {tuple(shadows[0][0].shape)}")
+    cb = ci.cluster_rows(r.bvh.clusters)
+    o, d, tile_r, launches = rays[1]
+    o, d, _ = ci.pad_and_seed(o, d, r.bvh.clusters, tile_r)
+    rec, _, bin_err = bin_batch("100k 1080p Whitted bounce",
+                                ci.tile_params(o, d, tile_r), cb, None,
+                                launches["bin_clusters"], card)
+    bin_batches = [rec]
     any_batches, err = [], 0.0
     for (o, d, t_max, launches), label in zip(
             shadows[:2], ("100k 1080p primary shadow", "100k 1080p bounce shadow")):
+        po, pd, ptm, t_cap = ci.pad_and_cap(o, d, t_max, TILE_R)
+        rec, _, e = bin_batch(label, ci.tile_params(po, pd, TILE_R, t_cap=t_cap,
+                                                    live=ptm > T_MIN),
+                              cb, None, launches["bin_clusters"], card)
+        bin_batches.append(rec)
+        bin_err = max(bin_err, e)
+        del po, pd, ptm, t_cap
         args = any_hit_args(o, d, t_max, r.bvh)
         flag_err, walk_bound = check_any_hit(args, label,
                                              must_block=not any_batches)
         err = max(err, flag_err)
         any_batches.append(batch_record(label, ci.any_hit, ci.any_hit_plain,
-                                        args, walk_bound, launches, card))
+                                        args, walk_bound, launches["any_hit"],
+                                        card))
         del args
     primary = any_batches[0]
     record = dict(max_abs_err=err, ms=primary["ms"],
@@ -508,8 +638,8 @@ def whitted_path(r, card):
                   batches=any_batches)
     o, d, tile_r, launches = rays[1]
     bounce, bounce_err = closest_batch(closest_args(o, d, r.bvh, tile_r),
-                                       "100k 1080p Whitted bounce", launches,
-                                       card)
+                                       "100k 1080p Whitted bounce",
+                                       launches["closest_hit"], card)
     del rays, shadows
 
     ci.reset_launch_counts()
@@ -548,7 +678,7 @@ def whitted_path(r, card):
     print(f"whitted depth-{WHITTED_DEPTH} frame at {width}x{height}, "
           f"bench_scene(100_000): {frame_ms:.4f} ms median of {WHITTED_REPS} "
           f"[{card}]")
-    return record, (bounce, bounce_err), launches
+    return record, (bounce, bounce_err), (bin_batches, bin_err), launches
 
 
 def huge_path(device, card):
@@ -570,43 +700,9 @@ def huge_path(device, card):
     tp = ci.tile_params(o, d, tile_r)
     cb = ci.cluster_rows(r.bvh.clusters)
     sb = r.bvh.srows
-    e_k, o_k = ci.bin_clusters_super(tp, cb, sb)
-    e_p, o_p = ci.bin_clusters_super_plain(tp, cb, sb)
-    e_d, o_d = ci.bin_clusters_dense(tp, cb)
-    torch.cuda.synchronize()
-    skipped = float((e_k == ci.BIG).float().mean())
-    print(f"[1M 1080p] bin_clusters_super: {tuple(o_k.shape)} pairs, "
-          f"{int(o_p.sum())} overlapping, {skipped:.4f} of pairs in skipped "
-          f"superblocks; equal to plain: overlap {torch.equal(o_k, o_p)}, "
-          f"entry {torch.equal(e_k, e_p)}; equal to dense: overlap "
-          f"{torch.equal(o_k, o_d)}, entry {torch.equal(e_k[o_d], e_d[o_d])}")
-    require(torch.equal(o_k, o_p) and torch.equal(e_k, e_p),
-            "bin_clusters_super differs from its plain version")
-    require(torch.equal(o_k, o_d) and torch.equal(e_k[o_d], e_d[o_d]),
-            "bin_clusters_super differs from the dense kernel")
-    both = o_k & o_p
-    # The slab tests it needs: every hull, then every cluster of the
-    # superblocks each tile overlaps.
-    _, s_ovl = ci.bin_clusters_plain(tp, sb)
-    sizes = torch.full((sb.shape[1],), float(ci.SUPER_BLOCK), device=device)
-    sizes[-1] = c - ci.SUPER_BLOCK * (sb.shape[1] - 1)
-    tests = s_ovl.numel() + int((s_ovl.float() @ sizes).sum())
-    tiles = tp.shape[0]
-    super_bound = bound(nbytes(tp, cb, sb) + 5 * tiles * c, tests * SLAB_OPS)
-    print(f"[1M 1080p] bin_clusters_super: {tests} slab tests "
-          f"({s_ovl.numel()} hulls), bound {super_bound[0]:.4f} ms "
-          f"({super_bound[1]})")
-    record = dict(
-        max_abs_err=float((e_k[both] - e_p[both]).abs().max()) if both.any() else 0.0,
-        ms=time_ms(lambda: ci.bin_clusters_super(tp, cb, sb), KERNEL_REPS),
-        plain_ms=time_ms(lambda: ci.bin_clusters_super_plain(tp, cb, sb),
-                         PLAIN_REPS),
-        bound_ms=super_bound[0], bound_by=super_bound[1], library_ms=None)
-    dense_ms = time_ms(lambda: ci.bin_clusters_dense(tp, cb), KERNEL_REPS)
-    print(f"bin_clusters_super at 1M 1080p shapes: kernel {record['ms']:.4f} ms, "
-          f"dense kernel {dense_ms:.4f} ms, plain {record['plain_ms']:.4f} ms "
-          f"(medians, CUDA events) [{card}]")
-    del e_k, o_k, e_p, o_p, e_d, o_d, both, s_ovl
+    rec, _, bin_err = bin_batch("1M 1080p primary", tp, cb, sb, 0, card)
+    record = dict(max_abs_err=bin_err, library_ms=None, batches=[rec])
+    overflow_check(device, card)
 
     ci.reset_launch_counts()
     img = r.render_frame(5)
@@ -632,7 +728,47 @@ def huge_path(device, card):
     print(f"mode-5 frame at {width}x{height}, bench_scene(1_000_000): "
           f"{frame_ms:.4f} ms median of {HUGE_REPS}, "
           f"{width * height / frame_ms / 1e3:.2f} Mrays/s [{card}]")
+    rec["launches"] = launches["bin_clusters_super"]
     return record, closest, launches
+
+
+def overflow_case(device, c=40_000):
+    """Random (8, c) rows of small boxes in [-500, 500]^3 (5% invalid, box
+    floors on a unit grid in z, so entries tie) and three tiles: one whose
+    origin slab spans every box in x and y below them all (it lists every
+    valid cluster, far more than the kernel sorts in shared memory), one
+    parked, one narrow."""
+    g = torch.Generator().manual_seed(0)
+    lo = torch.rand((3, c), generator=g) * 1000 - 500
+    lo[2] = torch.floor(lo[2])
+    cb = torch.zeros((8, c))
+    cb[0:3] = lo
+    cb[3:6] = lo + torch.rand((3, c), generator=g) * 5 + 0.1
+    cb[6] = (torch.rand(c, generator=g) > 0.05).float()
+    tp = torch.zeros((3, 16))
+    tp[0, 0:6] = torch.tensor([-1e3, -1e3, -600.0, 1e3, 1e3, -600.0])
+    tp[0, 6:12] = torch.tensor([-0.5, -0.5, 0.5, 0.5, 0.5, 1.0])
+    tp[1, 0:6], tp[1, 6:12] = 1e30, 1.0
+    tp[2, 0:6] = torch.tensor([0.0, 0.0, -600.0, 10.0, 10.0, -600.0])
+    tp[2, 6:12] = torch.tensor([0.1, 0.1, 0.9, 0.2, 0.2, 1.0])
+    tp[:, 12], tp[:, 13], tp[:, 14] = 1.0, 1e-3, 1e30
+    return tp.to(device), cb.to(device)
+
+
+def overflow_check(device, card):
+    """A tile listing more clusters than the kernel sorts in shared memory
+    (its network then runs over the tile's output rows): both modes equal
+    the plain lists, no cluster dropped."""
+    tp, cb = overflow_case(device)
+    sb = ci.super_rows(cb)
+    want, _ = check_lists("synthetic 40,000 boxes", tp, cb, sb)
+    n_valid = int((cb[6] > 0.5).sum())
+    require(int(want[2][0]) == n_valid > 2048,
+            f"the overflow tile lists {int(want[2][0])} of {n_valid} clusters")
+    ms = device_ms(lambda: ci.launch_bin_lists(tp, cb, sb), "bin_lists_kernel",
+                   reps=3)
+    print(f"bin_lists (super) with a {n_valid}-cluster list: kernel {ms:.4f} ms "
+          f"(device time, profiler) [{card}]")
 
 
 def precision_path(device, card):
@@ -710,12 +846,10 @@ def main() -> int:
         print(log.read_text().strip())
 
     records = kernels_vs_plain(device, card)
-    for name, rec in records.items():
-        print(f"{name} at 1080p/100k shapes: kernel {rec['ms']:.4f} ms, plain "
-              f"{rec['plain_ms']:.4f} ms (medians, CUDA events) [{card}]")
     r, launches = main_path(device)
-    closest = records["closest_hit"]
+    closest, binner = records["closest_hit"], records["bin_clusters"]
     closest["batches"][0]["launches"] = launches["closest_hit"]
+    binner["batches"][0]["launches"] = launches["bin_clusters"]
 
     frame_ms = time_ms(lambda: r.render_frame(5), FRAME_REPS, warmup=3)
     n_rays = r.width * r.height
@@ -723,8 +857,10 @@ def main() -> int:
           f"{frame_ms:.4f} ms median of {FRAME_REPS}, "
           f"{n_rays / frame_ms / 1e3:.2f} Mrays/s [{card}]")
 
-    records["any_hit"], (bounce, bounce_err), whitted_launches = whitted_path(
-        r, card)
+    (records["any_hit"], (bounce, bounce_err), (bin_batches, bin_err),
+     whitted_launches) = whitted_path(r, card)
+    binner["batches"] += bin_batches
+    binner["max_abs_err"] = max(binner["max_abs_err"], bin_err)
     del r
     torch.cuda.empty_cache()
     records["bin_clusters_super"], (huge, huge_err), huge_launches = huge_path(
@@ -739,6 +875,11 @@ def main() -> int:
     # 1M path (bin_clusters_super).
     launches["any_hit"] = whitted_launches["any_hit"]
     launches["bin_clusters_super"] = huge_launches["bin_clusters_super"]
+    # The binning kernel's lines carry their first batch's numbers on top.
+    for name in ("bin_clusters", "bin_clusters_super"):
+        first = records[name]["batches"][0]
+        records[name].update({key: first[key] for key in
+                              ("ms", "plain_ms", "bound_ms", "bound_by")})
     # The precision micro's line carries its highest variant (full f32, the
     # production fold's precision) and every variant under "variants";
     # its launches are those of its tool's run.

@@ -3,8 +3,9 @@ per-tile schedule between them.
 
 Counterpart of ``directx_raytracer_tpu/bvh/pallas_intersect.py``: the
 binning kernels ``_bin_kernel_body`` and ``_bin_kernel_super_body`` become
-``bin_clusters_dense`` and ``bin_clusters_super`` (csrc/bin_clusters.cu,
-dispatched by ``bin_clusters`` on the cluster count), the closest-hit kernel
+the dense and superblock modes of one fused binning kernel
+(csrc/bin_clusters.cu, wrapped by ``bin_lists``, which picks the mode on
+the cluster count), the closest-hit kernel
 ``_make_kernel`` becomes ``closest_hit`` (csrc/closest_hit.cu), the any-hit
 kernel ``_make_anyhit_kernel`` becomes ``any_hit`` (csrc/any_hit.cu), and
 ``intersect_pallas``/``occluded_pallas`` become ``intersect_fused``/
@@ -14,12 +15,13 @@ kernel ``_make_anyhit_kernel`` becomes ``any_hit`` (csrc/any_hit.cu), and
    padding never hits) and seed each ray's best t with
    ``min(T_MAX, scene_exit_t * 1.001 + 1e-2)``;
 2. per-tile origin/direction bounds (torch min/max reductions);
-3. ``bin_clusters``: conservative entry distance and overlap flag of every
-   (tile, cluster) pair;
-4. the visit lists (torch): entries of non-overlapping pairs masked to
-   +inf, each tile's row sorted, cut at the largest overlap count — the
-   query's one host sync;
-5. ``closest_hit``: each tile walks its list near to far and stops once
+3. ``bin_lists``: one kernel launch slab-tests every (tile, cluster)
+   pair (in superblock mode only the clusters of superblocks whose hull
+   the tile overlaps), and each tile's CTA compacts its overlapping
+   clusters and sorts them by conservative entry distance, ties to the
+   lower id, into its visit list; no (T, C) array is written.  Reading the
+   largest count is the query's one host sync;
+4. ``closest_hit``: each tile walks its list near to far and stops once
    the next entry exceeds the tile's largest best t.  No cluster is ever
    dropped: every overlapping cluster is either visited or provably
    farther than every ray's best.  The kernel cuts the lists into work
@@ -32,11 +34,12 @@ bounds each tile over its armed rays only, caps its binning at its largest
 t_max, and runs ``any_hit``, which stops a tile once the next entry
 exceeds the largest t_max of its still-unblocked rays.
 
-Each kernel has a plain torch version here (``bin_clusters_plain``,
-``bin_clusters_super_plain``, ``closest_hit_plain``, ``any_hit_plain``)
-computing the same function; the CPU tests run them and the GPU check
-compares the kernels with them.  A wrapper takes its plain version only for
-tensors on the CPU; for CUDA tensors it launches its kernel or raises.
+Each kernel has a plain torch version here (``bin_lists_plain``, built on
+the (T, C) reference ``bin_clusters_plain``/``bin_clusters_super_plain``,
+``closest_hit_plain``, ``any_hit_plain``) computing the same function; the
+CPU tests run them and the GPU check compares the kernels with them.  A
+wrapper takes its plain version only for tensors on the CPU; for CUDA
+tensors it launches its kernel or raises.
 
 The kernels are compiled with nvcc on first use, from the sources in
 ``csrc/``, into ``_build/`` next to this package, and bound with ctypes.
@@ -70,10 +73,11 @@ CLOSEST_CHUNK = 2  # closest_hit: list positions per work item
 PLAIN_CHUNK = 128  # tiles per step of the plain walks (~50 MB temporaries)
 BIG = 1e30
 SUPER_BLOCK = 128  # clusters per superblock of the superblock binner
-SUPER_MIN_C = 2048  # from this cluster count on, bin_clusters skips superblocks
+SUPER_MIN_C = 2048  # from this cluster count on, binning skips superblocks
 
 # Kernel launches per wrapper since the last reset (plain integers; the
-# plain versions never count).  "bin_clusters" counts the dense binner.
+# plain versions never count).  "bin_clusters" counts the binning kernel's
+# dense-mode launches, "bin_clusters_super" its superblock-mode ones.
 LAUNCHES = {"bin_clusters": 0, "bin_clusters_super": 0, "closest_hit": 0,
             "any_hit": 0}
 
@@ -161,10 +165,8 @@ def _lib() -> ctypes.CDLL:
     so, _ = build_kernels()
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dxrt_bin_clusters.argtypes = [p, p, p, p, i, i, p]
-    lib.dxrt_bin_clusters.restype = i
-    lib.dxrt_bin_clusters_super.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.dxrt_bin_clusters_super.restype = i
+    lib.dxrt_bin_lists.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.dxrt_bin_lists.restype = i
     lib.dxrt_closest_hit.argtypes = [p] * 10 + [i, i, i, i, i, f, i, p]
     lib.dxrt_closest_hit.restype = i
     lib.dxrt_any_hit.argtypes = [p] * 10 + [i, i, i, i, f, i, p]
@@ -218,7 +220,7 @@ def cluster_rows(cs: ClusterSet) -> torch.Tensor:
 
 def tile_params(origins, dirs, tile_r: int, t_min=T_MIN, t_cap=None,
                 live=None) -> torch.Tensor:
-    """(T, 16) f32 per-tile interval params for ``bin_clusters``:
+    """(T, 16) f32 per-tile interval params for the binning kernel:
     [o_lo xyz | o_hi xyz | d_lo xyz | d_hi xyz | len_hi | t_min | t_cap |
     pad], with len_hi = 1 (normalized rays).  ``t_cap`` (T,) caps each
     tile's overlaps at that entry distance; None writes BIG (no cap).
@@ -249,9 +251,9 @@ def tile_params(origins, dirs, tile_r: int, t_min=T_MIN, t_cap=None,
 
 
 def bin_clusters_plain(tp: torch.Tensor, cb: torch.Tensor):
-    """Plain torch version of ``bin_clusters``: the JAX package's
-    ``bin_clusters_bits(impl="xla")`` slab formulation
-    (pallas_intersect.py:274-292) on the kernel's operands.
+    """The slab test of every (tile, cluster) pair, the binning kernel's
+    arithmetic: the JAX package's ``bin_clusters_bits(impl="xla")`` slab
+    formulation (pallas_intersect.py:274-292) on the kernel's operands.
     Returns entry (T, C) f32 and overlap (T, C) bool."""
     o_lo, o_hi = tp[:, 0:3], tp[:, 3:6]
     d_lo, d_hi = tp[:, 6:9], tp[:, 9:12]
@@ -273,28 +275,6 @@ def bin_clusters_plain(tp: torch.Tensor, cb: torch.Tensor):
     entry = torch.maximum(entry, t_min)
     overlap = overlap & (entry <= t_cap)
     return entry / len_hi, overlap
-
-
-def bin_clusters_dense(tp: torch.Tensor, cb: torch.Tensor):
-    """Entry (T, C) f32 and overlap (T, C) bool of every (tile, cluster)
-    pair: the dense ``bin_clusters`` kernel for CUDA tensors, its plain
-    version for CPU tensors."""
-    if tp.device.type == "cpu":
-        return bin_clusters_plain(tp, cb)
-    tiles, c = tp.shape[0], cb.shape[1]
-    _check("tp", tp, torch.float32, (tiles, 16), tp.device)
-    _check("cb", cb, torch.float32, (8, c), tp.device)
-    entry = torch.empty((tiles, c), dtype=torch.float32, device=tp.device)
-    ovl = torch.empty((tiles, c), dtype=torch.uint8, device=tp.device)
-    if tiles and c:
-        lib = _lib()
-        with torch.cuda.device(tp.device):
-            stream = torch.cuda.current_stream(tp.device).cuda_stream
-            err = lib.dxrt_bin_clusters(tp.data_ptr(), cb.data_ptr(),
-                                        entry.data_ptr(), ovl.data_ptr(),
-                                        tiles, c, stream)
-        _launched(lib, "bin_clusters", err)
-    return entry, ovl.view(torch.bool)
 
 
 def super_rows(cb: torch.Tensor, block: int = SUPER_BLOCK) -> torch.Tensor:
@@ -329,7 +309,7 @@ def _check_super(cb, sb, block: int) -> None:
 
 def bin_clusters_super_plain(tp: torch.Tensor, cb: torch.Tensor,
                              sb: torch.Tensor, block: int = SUPER_BLOCK):
-    """Plain torch version of ``bin_clusters_super``: the dense slab test,
+    """The superblock mode's (T, C) reference: the dense slab test,
     then entry = BIG and overlap = False for every cluster whose superblock
     hull (row of ``sb = super_rows(cb, block)``) the tile misses
     (``_bin_kernel_super_body``, pallas_intersect.py:367-393).  The slab
@@ -341,49 +321,120 @@ def bin_clusters_super_plain(tp: torch.Tensor, cb: torch.Tensor,
     return torch.where(keep, entry, BIG), ovl & keep
 
 
-def bin_clusters_super(tp: torch.Tensor, cb: torch.Tensor, sb: torch.Tensor,
-                       block: int = SUPER_BLOCK):
-    """``bin_clusters_dense``'s overlaps, computed only inside superblocks
-    whose hull the tile overlaps (entry BIG elsewhere): the superblock
-    kernel for CUDA tensors, its plain version for CPU tensors.  ``sb`` is
-    ``super_rows(cb, block)``."""
-    if tp.device.type == "cpu":
-        return bin_clusters_super_plain(tp, cb, sb, block)
-    _check_super(cb, sb, block)
-    tiles, c = tp.shape[0], cb.shape[1]
-    s = sb.shape[1]
-    _check("tp", tp, torch.float32, (tiles, 16), tp.device)
-    _check("cb", cb, torch.float32, (8, c), tp.device)
-    _check("sb", sb, torch.float32, (8, s), tp.device)
-    entry = torch.empty((tiles, c), dtype=torch.float32, device=tp.device)
-    ovl = torch.empty((tiles, c), dtype=torch.uint8, device=tp.device)
-    if tiles and c:
-        lib = _lib()
-        with torch.cuda.device(tp.device):
-            stream = torch.cuda.current_stream(tp.device).cuda_stream
-            err = lib.dxrt_bin_clusters_super(
-                tp.data_ptr(), cb.data_ptr(), sb.data_ptr(), entry.data_ptr(),
-                ovl.data_ptr(), tiles, c, s, block, stream)
-        _launched(lib, "bin_clusters_super", err)
-    return entry, ovl.view(torch.bool)
-
-
-def bin_clusters(tp: torch.Tensor, cb: torch.Tensor, sb=None,
-                 plain: bool = False):
-    """Entry (T, C) f32 and overlap (T, C) bool of every (tile, cluster)
-    pair.  Below ``SUPER_MIN_C`` clusters the dense binner runs; from there
-    on the superblock binner, with ``sb`` = ``super_rows(cb)`` (built here
-    when not given).  ``plain=True`` runs their plain versions on any
-    device."""
+def bin_clusters(tp: torch.Tensor, cb: torch.Tensor, sb=None):
+    """The plain (T, C) reference of the binning layer: entry f32 and
+    overlap bool of every (tile, cluster) pair.  Below ``SUPER_MIN_C``
+    clusters the dense slab test; from there on the superblock one, with
+    ``sb`` = ``super_rows(cb)`` (built here when not given)."""
     if cb.shape[1] < SUPER_MIN_C:
-        return (bin_clusters_plain if plain else bin_clusters_dense)(tp, cb)
+        return bin_clusters_plain(tp, cb)
     sb = super_rows(cb) if sb is None else sb
-    return (bin_clusters_super_plain if plain else bin_clusters_super)(
-        tp, cb, sb)
+    return bin_clusters_super_plain(tp, cb, sb)
+
+
+# A listed entry's key, (bits(entry) << 32) | cluster, and the high word of
+# every unlisted pair's: +inf, so unlisted clusters sort last, by id.
+_INF_BITS = 0x7F800000
+
+
+def bin_lists_plain(tp: torch.Tensor, cb: torch.Tensor, sb=None,
+                    block: int = SUPER_BLOCK):
+    """Plain torch version of the fused binning kernel: the slab test of
+    every (tile, cluster) pair (``bin_clusters_plain``, or with ``sb`` =
+    ``super_rows(cb, block)`` ``bin_clusters_super_plain``), each row
+    sorted by the kernel's packed int64 keys (bits(entry) << 32) | cluster
+    with unlisted pairs at +inf, cut at the largest count.  Entries are >=
+    t_min > 0, so this order is a stable sort of the masked entries:
+    ``visit_lists``' result, bit for bit.  Returns visit (T, W) i32,
+    ventry (T, W) f32, counts (T,) i32 and W, the largest count (one host
+    sync)."""
+    if sb is None:
+        entry, overlap = bin_clusters_plain(tp, cb)
+    else:
+        entry, overlap = bin_clusters_super_plain(tp, cb, sb, block)
+    ids = torch.arange(cb.shape[1], dtype=torch.int64, device=tp.device)
+    high = torch.where(overlap, entry.view(torch.int32).to(torch.int64),
+                       _INF_BITS)
+    keys, _ = torch.sort((high << 32) | ids, dim=1)
+    counts = overlap.sum(dim=1, dtype=torch.int32)
+    width = int(counts.max()) if counts.numel() else 0
+    keys = keys[:, :width]
+    visit = (keys & 0xFFFFFFFF).to(torch.int32)
+    ventry = (keys >> 32).to(torch.int32).view(torch.float32)
+    return visit, ventry, counts, width
+
+
+def launch_bin_lists(tp: torch.Tensor, cb: torch.Tensor, sb=None,
+                     block: int = SUPER_BLOCK):
+    """Launch the fused binning kernel on CUDA tensors, in dense mode (``sb``
+    None) or superblock mode (``sb`` = ``super_rows(cb, block)``), without
+    a host sync.  Returns visit (T, C) i32, ventry (T, C) f32 and meta
+    (T + 1,) i32: row t of the lists holds its first meta[t] positions, near
+    to far (the rest is never written); meta[T] is the largest count.
+    Counted in ``LAUNCHES`` under "bin_clusters" (dense) or
+    "bin_clusters_super"."""
+    dev = tp.device
+    tiles, c = tp.shape[0], cb.shape[1]
+    _check("tp", tp, torch.float32, (tiles, 16), dev)
+    _check("cb", cb, torch.float32, (8, c), dev)
+    s = 0
+    if sb is not None:
+        _check_super(cb, sb, block)
+        s = sb.shape[1]
+        _check("sb", sb, torch.float32, (8, s), dev)
+    visit = torch.empty((tiles, c), dtype=torch.int32, device=dev)
+    ventry = torch.empty((tiles, c), dtype=torch.float32, device=dev)
+    meta = torch.empty((tiles + 1,), dtype=torch.int32, device=dev)
+    if not (tiles and c):
+        meta.zero_()
+    else:
+        lib = _lib()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.dxrt_bin_lists(
+                tp.data_ptr(), cb.data_ptr(),
+                None if sb is None else sb.data_ptr(), visit.data_ptr(),
+                ventry.data_ptr(), meta.data_ptr(), tiles, c, s, block, c,
+                stream)
+        _launched(lib, "bin_clusters" if sb is None else "bin_clusters_super",
+                  err)
+    return visit, ventry, meta
+
+
+def bin_lists(tp: torch.Tensor, cb: torch.Tensor, sb=None, plain: bool = False,
+              mode=None, block: int = SUPER_BLOCK):
+    """Each tile's visit list: the clusters its params ``tp`` (T, 16)
+    overlap among ``cb`` (8, C), near to far, ties to the lower id.
+    Returns visit and ventry (T, stride) i32/f32, counts (T,) i32 and the
+    width, the largest count (reading it is the query's one host sync);
+    row t's first counts[t] positions are its list.  The fused kernel for
+    CUDA tensors (stride C, the rest of each row unwritten), its plain
+    version ``bin_lists_plain`` for CPU tensors or with ``plain=True``
+    (stride = width).
+
+    ``mode`` "dense" tests every pair, "super" first the superblock hulls
+    ``sb`` (``super_rows(cb, block)``, built here when not given); None
+    picks "super" from ``SUPER_MIN_C`` clusters on.  Both give the same
+    lists."""
+    if mode is None:
+        mode = "dense" if cb.shape[1] < SUPER_MIN_C else "super"
+    if mode == "dense":
+        sb = None
+    elif mode == "super":
+        sb = super_rows(cb, block) if sb is None else sb
+    else:
+        raise ValueError(f"mode {mode!r}: expected 'dense' or 'super'")
+    if plain or tp.device.type == "cpu":
+        return bin_lists_plain(tp, cb, sb, block)
+    visit, ventry, meta = launch_bin_lists(tp, cb, sb, block)
+    tiles = tp.shape[0]
+    return visit, ventry, meta[:tiles], int(meta[tiles])
 
 
 def visit_lists(entry: torch.Tensor, overlap: torch.Tensor):
-    """Each tile's overlapping clusters, near to far.
+    """Each tile's overlapping clusters, near to far, from the (T, C)
+    reference (``bin_clusters``): what ``bin_lists`` computes in one
+    kernel, kept as the reference it is tested against.
 
     Returns visit (T, L) i32 cluster ids, their entries (T, L) f32 and the
     per-tile counts (T,) i32, with L the largest count; slots past a
@@ -488,11 +539,16 @@ def unpack_keys(keys: torch.Tensor):
 
 
 def closest_hit(origins, dirs, init_t, wrows, visit, ventry, counts,
-                tile_r: int, t_min=T_MIN, chunk: int = CLOSEST_CHUNK):
+                tile_r: int, t_min=T_MIN, chunk: int = CLOSEST_CHUNK,
+                width=None):
     """Closest hit of every ray over its tile's visit list: the
     ``closest_hit`` kernel for CUDA tensors, its plain version for CPU
     tensors.  Returns best_t (N,) f32 and best_slot (N,) i32 (-1: no hit
     closer than the seed).  Seeds must be >= 0 (``pack_keys``).
+
+    ``visit``/``ventry`` (T, stride) hold each tile's list in its first
+    counts[t] positions (nothing past them is read); ``width``, at least
+    the largest count, sizes the schedule (None: the stride).
 
     The kernel cuts each list into work items of ``chunk`` positions,
     takes them depth by depth (every tile's depth j before any tile's depth
@@ -508,15 +564,18 @@ def closest_hit(origins, dirs, init_t, wrows, visit, ventry, counts,
     if chunk < 1:
         raise ValueError(f"chunk {chunk} < 1")
     dev = origins.device
-    tiles, width = visit.shape
+    tiles, stride = visit.shape
+    width = stride if width is None else width
+    if not 0 <= width <= stride:
+        raise ValueError(f"width {width} outside [0, {stride}]")
     n = tiles * tile_r
     c, k, _ = wrows.shape
     _check("origins", origins, torch.float32, (n, 3), dev)
     _check("dirs", dirs, torch.float32, (n, 3), dev)
     _check("init_t", init_t, torch.float32, (n,), dev)
     _check("wrows", wrows, torch.float32, (c, k, 12), dev)
-    _check("visit", visit, torch.int32, (tiles, width), dev)
-    _check("ventry", ventry, torch.float32, (tiles, width), dev)
+    _check("visit", visit, torch.int32, (tiles, stride), dev)
+    _check("ventry", ventry, torch.float32, (tiles, stride), dev)
     _check("counts", counts, torch.int32, (tiles,), dev)
     keys = pack_keys(init_t)
     if tiles:
@@ -533,7 +592,7 @@ def closest_hit(origins, dirs, init_t, wrows, visit, ventry, counts,
                 origins.data_ptr(), dirs.data_ptr(), wrows.data_ptr(),
                 visit.data_ptr(), ventry.data_ptr(), counts.data_ptr(),
                 order.data_ptr(), offs.data_ptr(), sched.data_ptr(),
-                keys.data_ptr(), tiles, depths, tile_r, width, k, t_min,
+                keys.data_ptr(), tiles, depths, tile_r, stride, k, t_min,
                 chunk, stream)
         _launched(lib, "closest_hit", err)
     return unpack_keys(keys)
@@ -607,22 +666,24 @@ def any_hit(origins, dirs, t_max, wrows, visit, ventry, counts,
 
     The kernel cuts each tile's list into work items of ``ANYHIT_CHUNK``
     positions that run in parallel (occlusion is an OR over clusters, so
-    the result is the walk's); sizing the grid is one host sync."""
+    the result is the walk's); sizing the grid is one host sync.
+    ``visit``/``ventry`` (T, stride) hold each tile's list in its first
+    counts[t] positions; nothing past them is read."""
     if origins.device.type == "cpu":
         return any_hit_plain(origins, dirs, t_max, wrows, visit, ventry,
                              counts, tile_r, t_min)
     if not 1 <= tile_r <= ANYHIT_MAX_TILE_R:
         raise ValueError(f"tile_r {tile_r} outside [1, {ANYHIT_MAX_TILE_R}]")
     dev = origins.device
-    tiles, width = visit.shape
+    tiles, stride = visit.shape
     n = tiles * tile_r
     c, k, _ = wrows.shape
     _check("origins", origins, torch.float32, (n, 3), dev)
     _check("dirs", dirs, torch.float32, (n, 3), dev)
     _check("t_max", t_max, torch.float32, (n,), dev)
     _check("wrows", wrows, torch.float32, (c, k, 12), dev)
-    _check("visit", visit, torch.int32, (tiles, width), dev)
-    _check("ventry", ventry, torch.float32, (tiles, width), dev)
+    _check("visit", visit, torch.int32, (tiles, stride), dev)
+    _check("ventry", ventry, torch.float32, (tiles, stride), dev)
     _check("counts", counts, torch.int32, (tiles,), dev)
     blocked = torch.zeros((n,), dtype=torch.uint8, device=dev)
     work_tile, work_start = anyhit_work_items(counts)
@@ -635,7 +696,7 @@ def any_hit(origins, dirs, t_max, wrows, visit, ventry, counts,
                 origins.data_ptr(), dirs.data_ptr(), t_max.data_ptr(),
                 wrows.data_ptr(), visit.data_ptr(), ventry.data_ptr(),
                 counts.data_ptr(), work_tile.data_ptr(), work_start.data_ptr(),
-                blocked.data_ptr(), n_items, tile_r, width, k, t_min,
+                blocked.data_ptr(), n_items, tile_r, stride, k, t_min,
                 ANYHIT_CHUNK, stream)
         _launched(lib, "any_hit", err)
     return blocked.view(torch.bool)
@@ -698,14 +759,14 @@ def intersect_fused(origins, dirs, cs: ClusterSet, wrows, tile_r: int = TILE_R,
     """
     if not cs.identity_order:
         raise ValueError("intersect_fused needs treelet-ordered clusters")
-    walker = closest_hit_plain if plain else closest_hit
     n = origins.shape[0]
     origins, dirs, t_init = pad_and_seed(origins, dirs, cs, tile_r)
-    entry, overlap = bin_clusters(tile_params(origins, dirs, tile_r),
-                                  cluster_rows(cs), srows, plain=plain)
-    visit, ventry, counts = visit_lists(entry, overlap)
-    best_t, best_slot = walker(origins, dirs, t_init, wrows, visit, ventry,
-                               counts, tile_r)
+    visit, ventry, counts, width = bin_lists(
+        tile_params(origins, dirs, tile_r), cluster_rows(cs), srows,
+        plain=plain)
+    args = (origins, dirs, t_init, wrows, visit, ventry, counts, tile_r)
+    best_t, best_slot = (closest_hit_plain(*args) if plain
+                         else closest_hit(*args, width=width))
     best_t, best_slot = best_t[:n], best_slot[:n]
     hit = best_slot >= 0
     zero = torch.zeros_like(best_t)
@@ -734,18 +795,18 @@ def anyhit_schedule(origins, dirs, t_max, cs: ClusterSet, tile_r: int = TILE_R,
     """The any-hit walk's operands for a shadow batch: rays padded to whole
     tiles (``pad_and_cap``), each tile bounded over its ARMED rays
     (t_max > T_MIN) only and capped at its largest t_max, binned, and cut
-    into visit lists.  Returns (origins, dirs, t_max, visit, ventry,
-    counts).
+    into visit lists (``bin_lists``).  Returns (origins, dirs, t_max,
+    visit, ventry, counts).
 
     Bounding over armed rays is exact (a disarmed ray is never blocked) and
     matters: a Morton-sorted shadow batch has one tile per light where the
     armed rays meet the parked tail (origin 1e30), whose all-lane box would
     bin every cluster and leave one CTA walking them all."""
     origins, dirs, t_max, t_cap = pad_and_cap(origins, dirs, t_max, tile_r)
-    entry, overlap = bin_clusters(
+    visit, ventry, counts, _ = bin_lists(
         tile_params(origins, dirs, tile_r, t_cap=t_cap, live=t_max > T_MIN),
         cluster_rows(cs), srows, plain=plain)
-    return (origins, dirs, t_max, *visit_lists(entry, overlap))
+    return origins, dirs, t_max, visit, ventry, counts
 
 
 def occluded_fused(origins, dirs, cs: ClusterSet, wrows, t_max,

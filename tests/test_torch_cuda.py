@@ -5,9 +5,10 @@ imports no JAX, so it runs on a GPU host without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: the binning kernels (dense and superblock) evaluate the plain
-version's ops in the same order with IEEE divides, so they must agree
-exactly.  ``closest_hit`` contracts a*b+c into FMAs where the plain version
+Tolerances: the binning kernel (dense and superblock modes) evaluates the
+plain version's ops in the same order with IEEE divides and orders its
+lists by one total order (entry, then cluster id), so its lists must equal
+``bin_lists_plain``'s exactly.  ``closest_hit`` contracts a*b+c into FMAs where the plain version
 rounds twice, so t may differ by ulps and a hit exactly on an edge may
 flip: hit/miss agreement >= 99.9%, same winner >= 99%, t within 1e-5
 relative on >= 99.9% of common hits.  ``any_hit`` contracts the same way:
@@ -68,11 +69,131 @@ def x(cuda):
                 tile_r=tile_r, lists=lists, entry=entry, overlap=overlap)
 
 
-def test_bin_kernel_matches_plain(x):
-    entry, overlap = ci.bin_clusters(x["tp"], x["cb"])
+def assert_lists_equal(got, want):
+    """The kernel's stride-C lists against the plain version's compact
+    ones: widths, counts, and each row's first counts[t] positions (ids,
+    and entries as bits)."""
+    visit, ventry, counts, width = got
+    w_visit, w_ventry, w_counts, w_width = want
     torch.cuda.synchronize()
-    assert torch.equal(overlap, x["overlap"])
-    assert torch.equal(entry[overlap], x["entry"][overlap])
+    assert width == w_width and torch.equal(counts, w_counts)
+    mine = torch.arange(width, device=counts.device) < counts[:, None]
+    assert torch.equal(visit[:, :width][mine], w_visit[mine])
+    assert torch.equal(ventry[:, :width][mine].view(torch.int32),
+                       w_ventry[mine].view(torch.int32))
+
+
+def test_bin_kernel_matches_plain(x):
+    got = ci.bin_lists(x["tp"], x["cb"])
+    assert got[0].shape == (x["tp"].shape[0], x["cb"].shape[1])
+    assert_lists_equal(got, ci.bin_lists_plain(x["tp"], x["cb"]))
+    assert_lists_equal(got, (*x["lists"], x["lists"][0].shape[1]))
+
+
+def scene_box(x):
+    cs = x["bvh"].clusters
+    lo = torch.where(cs.valid[:, None], cs.aabb_min, float("inf")).amin(0)
+    hi = torch.where(cs.valid[:, None], cs.aabb_max, -float("inf")).amax(0)
+    return lo, hi
+
+
+def bin_case(x, name):
+    """Tile params and cluster rows of one binning case on the card."""
+    cb = x["cb"]
+    o, d, _ = ci.pad_and_seed(x["o"], x["d"], x["bvh"].clusters, 256)
+    tp = ci.tile_params(o, d, 256)
+    if name == "ties":  # origins inside the scene: entries clamp to t_min
+        lo, hi = scene_box(x)
+        mid, half = (lo + hi) / 2, (hi - lo) / 8
+        tp[::2, 0:3], tp[::2, 3:6] = mid - half, mid + half
+    elif name == "parked":  # odd tiles all parked rays: they bin nothing
+        o, d = o.reshape(-1, 256, 3).clone(), d.reshape(-1, 256, 3).clone()
+        o[1::2], d[1::2] = 1e30, 1.0
+        tp = ci.tile_params(o.reshape(-1, 3), d.reshape(-1, 3), 256)
+    elif name == "t_cap":  # a cap exactly at a listed entry
+        _, ventry, counts, _ = ci.bin_lists_plain(tp, cb)
+        tp[:, 14] = ventry[:, 0]
+        t = int(torch.argmax(counts))
+        tp[t, 14] = ventry[t, int(counts[t]) // 2]
+    elif name == "super_min_c":  # SUPER_MIN_C random boxes over the scene
+        g = torch.Generator().manual_seed(1)
+        lo, hi = scene_box(x)
+        ext = (hi - lo).cpu()
+        c = ci.SUPER_MIN_C
+        box_lo = lo.cpu()[:, None] + torch.rand((3, c), generator=g) * ext[:, None]
+        cb = torch.zeros((8, c))
+        cb[0:3] = box_lo
+        cb[3:6] = box_lo + (0.2 + 0.8 * torch.rand((3, c), generator=g)) * 0.05 * ext[:, None]
+        cb[6] = (torch.rand(c, generator=g) > 0.05).float()
+        cb = cb.to(tp.device)
+    return tp, cb
+
+
+@pytest.mark.parametrize("mode", ["dense", "super"])
+@pytest.mark.parametrize("name", ["primary", "ties", "parked", "t_cap",
+                                  "super_min_c"])
+def test_bin_kernel_cases_match_plain(x, name, mode):
+    """Both modes: the plain lists exactly."""
+    tp, cb = bin_case(x, name)
+    want = ci.bin_lists_plain(tp, cb)
+    assert want[3] > 0
+    assert_lists_equal(ci.bin_lists(tp, cb, mode=mode, block=8), want)
+    if name == "parked":
+        assert (want[2][1::2] == 0).all()
+
+
+def overflow_case(device, c=40_000):
+    """Random (8, c) rows of small boxes in [-500, 500]^3 (5% invalid, box
+    floors on a unit grid in z, so entries tie) and three tiles: one whose
+    origin slab spans every box in x and y below them all (it lists every
+    valid cluster, far more than the kernel's shared buffer), one parked,
+    one narrow."""
+    g = torch.Generator().manual_seed(0)
+    lo = torch.rand((3, c), generator=g) * 1000 - 500
+    lo[2] = torch.floor(lo[2])
+    cb = torch.zeros((8, c))
+    cb[0:3] = lo
+    cb[3:6] = lo + torch.rand((3, c), generator=g) * 5 + 0.1
+    cb[6] = (torch.rand(c, generator=g) > 0.05).float()
+    tp = torch.zeros((3, 16))
+    tp[0, 0:6] = torch.tensor([-1e3, -1e3, -600.0, 1e3, 1e3, -600.0])
+    tp[0, 6:12] = torch.tensor([-0.5, -0.5, 0.5, 0.5, 0.5, 1.0])
+    tp[1, 0:6], tp[1, 6:12] = 1e30, 1.0
+    tp[2, 0:6] = torch.tensor([0.0, 0.0, -600.0, 10.0, 10.0, -600.0])
+    tp[2, 6:12] = torch.tensor([0.1, 0.1, 0.9, 0.2, 0.2, 1.0])
+    tp[:, 12], tp[:, 13], tp[:, 14] = 1.0, 1e-3, 1e30
+    return tp.to(device), cb.to(device)
+
+
+def test_bin_kernel_overflow_tile(cuda):
+    """A tile listing ~38,000 clusters sorts over its output rows: no
+    cluster dropped, the plain lists exactly, in both modes."""
+    tp, cb = overflow_case(cuda)
+    want = ci.bin_lists_plain(tp, cb, ci.super_rows(cb))
+    assert int(want[2][0]) == int((cb[6] > 0.5).sum()) > 2048
+    assert int(want[2][1]) == 0 and 0 < int(want[2][2]) < int(want[2][0])
+    assert_lists_equal(ci.bin_lists(tp, cb), want)
+    assert_lists_equal(ci.bin_lists(tp, cb, mode="dense"), want)
+
+
+def test_walk_kernels_on_stride_lists(x):
+    """closest_hit and any_hit on the binning kernel's stride-C lists give
+    what they give on the plain version's compact lists."""
+    tile_r = x["tile_r"]
+    visit, ventry, counts, width = ci.bin_lists(x["tp"], x["cb"])
+    args = (x["o"], x["d"], x["t_init"], x["bvh"].wrows)
+    got = ci.closest_hit(*args, visit, ventry, counts, tile_r, width=width)
+    want = ci.closest_hit(*args, *x["lists"], tile_r)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    batch = shadow_batch(x)
+    o, d, t_max, *lists = ci.anyhit_schedule(*batch, x["bvh"].clusters)
+    assert lists[0].shape[1] == x["cb"].shape[1]  # the kernel's stride
+    compact = ci.anyhit_schedule(*batch, x["bvh"].clusters, plain=True)[3:]
+    got = ci.any_hit(o, d, t_max, x["bvh"].wrows, *lists, TILE_R)
+    want = ci.any_hit(o, d, t_max, x["bvh"].wrows, *compact, TILE_R)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def closest_vs_plain(x, tile_r, chunk=ci.CLOSEST_CHUNK):
@@ -158,21 +279,27 @@ def test_closest_kernel_refuses_a_hit_at_the_seed(cuda, chunk):
 
 def test_wrappers_count_launches(x):
     before = dict(ci.LAUNCHES)
-    ci.bin_clusters(x["tp"], x["cb"])
+    ci.bin_lists(x["tp"], x["cb"])
     ci.closest_hit(x["o"], x["d"], x["t_init"], x["bvh"].wrows, *x["lists"],
                    x["tile_r"])
-    ci.bin_clusters_plain(x["tp"], x["cb"])
+    ci.bin_lists_plain(x["tp"], x["cb"])
+    ci.bin_lists(x["tp"], x["cb"], plain=True)
     assert ci.LAUNCHES["bin_clusters"] == before["bin_clusters"] + 1
     assert ci.LAUNCHES["closest_hit"] == before["closest_hit"] + 1
+    ci.bin_lists(x["tp"], x["cb"], mode="super", block=8)
+    assert ci.LAUNCHES["bin_clusters_super"] == before["bin_clusters_super"] + 1
 
 
 def test_wrappers_reject_bad_operands(x):
     with pytest.raises(ValueError):
-        ci.bin_clusters(x["tp"].double(), x["cb"])
+        ci.bin_lists(x["tp"].double(), x["cb"])
     with pytest.raises(ValueError):
-        ci.bin_clusters(x["tp"], x["cb"].T.contiguous().T)  # not contiguous
+        ci.bin_lists(x["tp"], x["cb"].T.contiguous().T)  # not contiguous
     with pytest.raises(ValueError):
-        ci.bin_clusters(x["tp"], x["cb"].cpu())
+        ci.bin_lists(x["tp"], x["cb"].cpu())
+    with pytest.raises(ValueError):  # hull rows of another block size
+        ci.bin_lists(x["tp"], x["cb"], ci.super_rows(x["cb"], 8), mode="super",
+                     block=4)
     args = [x["o"], x["d"], x["t_init"], x["bvh"].wrows, *x["lists"]]
     with pytest.raises(ValueError):
         ci.closest_hit(*args, 1024)  # more rays per tile than the CTA holds
@@ -259,14 +386,13 @@ def test_occluded_fused_kernels_match_plain(x):
 def test_super_kernel_matches_dense_and_plain(x, block):
     sb = ci.super_rows(x["cb"], block)
     before = ci.LAUNCHES["bin_clusters_super"]
-    entry, overlap = ci.bin_clusters_super(x["tp"], x["cb"], sb, block)
+    got = ci.bin_lists(x["tp"], x["cb"], sb, mode="super", block=block)
     assert ci.LAUNCHES["bin_clusters_super"] == before + 1
-    e_p, o_p = ci.bin_clusters_super_plain(x["tp"], x["cb"], sb, block)
-    e_d, o_d = ci.bin_clusters_dense(x["tp"], x["cb"])
-    torch.cuda.synchronize()
-    assert torch.equal(overlap, o_p) and torch.equal(entry, e_p)
-    assert torch.equal(overlap, o_d)
-    assert torch.equal(entry[o_d], e_d[o_d])
+    assert_lists_equal(got, ci.bin_lists_plain(x["tp"], x["cb"], sb, block))
+    assert_lists_equal(got, ci.bin_lists_plain(x["tp"], x["cb"]))
+    visit, ventry, counts, width = ci.bin_lists(x["tp"], x["cb"], mode="dense")
+    assert_lists_equal(got, (visit[:, :width], ventry[:, :width], counts,
+                             width))
 
 
 def test_whitted_frame_matches_plain(cuda):

@@ -265,7 +265,10 @@ def test_moller_trumbore_matches_jax():
 def test_super_rows_must_match_block(fx):
     tp = ci.tile_params(fx.o, fx.d, ci.TILE_R)
     with pytest.raises(ValueError):
-        ci.bin_clusters_super(tp, fx.cb, ci.super_rows(fx.cb, 8), block=32)
+        ci.bin_clusters_super_plain(tp, fx.cb, ci.super_rows(fx.cb, 8),
+                                    block=32)
+    with pytest.raises(ValueError):
+        ci.bin_lists(tp, fx.cb, ci.super_rows(fx.cb, 8), mode="super", block=32)
 
 
 def test_super_rows_match_jax(fx, monkeypatch):

@@ -22,7 +22,8 @@ def test_layers_group_the_hand_written_kernels():
     assert pf.layer_of("void (anonymous namespace)::closest_hit_kernel<3>(...)") \
         == "closest_hit kernel"
     assert pf.layer_of("any_hit_kernel(float const*, ...)") == "any_hit kernel"
-    assert pf.layer_of("bin_clusters_super_kernel(...)") == "binning kernels"
+    assert pf.layer_of("void (anonymous namespace)::bin_lists_kernel<true>(...)") \
+        == "bin_lists kernel"
     assert pf.layer_of("void at::native::elementwise_kernel<128, 2>").startswith(
         "torch: ")
 
