@@ -48,7 +48,27 @@ Phases, each of which raises (exit code != 0) on failure:
    kernel's three variants at the tool's shapes, S = 2048 steps) with its
    counters reset just before and read just after (every variant must
    launch), then each variant's kernel against its plain version on the
-   same seeded inputs, both timed as runs of calls back to back.
+   same seeded inputs, both timed as runs of calls back to back; the
+   highest variant's packed output must also equal the plain version's
+   on at least FOLD_AGREE of rays, and its bound is printed a second time
+   with the IEEE divide counted at its instruction count;
+9. the path-tracing path (run on the 100k Renderer, before phase 7): one
+   1080p/100k depth-4 sample whose batches are captured where the sample
+   hands them over, printing per pass the alive rays, the listed pairs,
+   longest list and work items of its ray and shadow batches; the binning
+   kernel, closest_hit and any_hit at the first bounce pass's ray batch and
+   shadow batch (diffuse continuations: incoherent rays) against their
+   plain versions and timed beside their bounds; one profiled sample for
+   each pass's kernel ms; then the port's own entry point,
+   viewer.app.main(["pathtrace", "--builtin", "bench_scene", ...]) for 4
+   samples with a checkpoint, counters reset just before and read just
+   after (bin_clusters, closest_hit and any_hit must launch): the PNG must
+   be what the checkpoint, loaded into a second PathTracer, gives, finite,
+   non-negative and not all background; 8 depth-1 samples against the
+   Whitted depth-1 frame (median abs error < 0.02 over the lit pixels
+   whose primary hit is diffuse: at its last depth the Whitted frame
+   shades a mirror as diffuse, where the path tracer gives it no direct
+   term); and ms per depth-4 sample.
 
 Each kernel's line in the kernels JSON also carries its bound (the least
 time the card could take for the same work: bytes over the memory rate or
@@ -89,15 +109,18 @@ from torch.profiler import ProfilerActivity, profile
 from directx_raytracer_tpu_torch import testscenes
 from directx_raytracer_tpu_torch.bvh import TILE_R, build_bvh, intersect_fused
 from directx_raytracer_tpu_torch.bvh import cuda_intersect as ci
+from directx_raytracer_tpu_torch.models.material import MaterialType
 from directx_raytracer_tpu_torch.models.scene import build_device_scene
 from directx_raytracer_tpu_torch.ops.debug_shading import MISS_COLOR
 from directx_raytracer_tpu_torch.ops.intersect import hit_record
 from directx_raytracer_tpu_torch.ops.rays import T_MIN, generate_rays_tiled, pick_schedule
-from directx_raytracer_tpu_torch.render.debug import render_debug
+from directx_raytracer_tpu_torch.render.debug import render_debug, untile
+from directx_raytracer_tpu_torch.render.pathtrace import PathTracer, pathtrace_tile
 from directx_raytracer_tpu_torch.render.renderer import Renderer
 from directx_raytracer_tpu_torch.render.whitted import render_whitted
 from directx_raytracer_tpu_torch.tools import precision_micro as pm
 from directx_raytracer_tpu_torch.utils.image import to_u8, write_png
+from directx_raytracer_tpu_torch.viewer.app import main as viewer_main
 
 BIG_SCENE = (100_000, 1920, 1080)
 SMALL_SCENE = (3_000, 96, 48)
@@ -108,6 +131,10 @@ FRAME_REPS = 15
 WHITTED_DEPTH = 3  # the bench.py:333-366 workload
 WHITTED_REPS = 5
 HUGE_REPS = 5
+PT_DEPTH = 4  # the tools/pt_bench.py workload: 1080p, 100k, depth 4
+PT_SAMPLES = 4
+PT_REPS = 5
+PT_DIRECT_SAMPLES = 8
 
 # Tolerances, kernel vs plain version on the same card and inputs:
 # * the binning kernel computes the plain version's slab ops in the same
@@ -146,6 +173,10 @@ ALIVE_SHARE = 0.001
 #   winner when a candidate sits on the threshold.
 FOLD_RTOL = 1e-3
 FOLD_AGREE = 0.995
+# * a depth-1 path-traced mean against the Whitted depth-1 frame: median
+#   abs error over lit pixels (Whitted max channel > 0.02) under 0.02, the
+#   gate of tests/test_pathtrace.py:19-33 (the jitter blurs edges).
+PT_DIRECT_ERR = 0.02
 
 # The least time the card could take (NVIDIA's data-sheet rates of an
 # H100 SXM at its 700 W limit, dense): bytes over the memory rate,
@@ -164,8 +195,13 @@ SLAB_OPS = 60
 #   multiply-adds and 3 multiplies, a negate and a divide, 2 subtracts and
 #   5 compares;
 PAIR_TEST_OPS = 46
-# * one candidate of the precision micro's tail (precision_micro.cu).
+# * one candidate of the precision micro's tail (precision_micro.cu), the
+#   divide as one operation; and the instructions nvcc's IEEE f32 divide
+#   takes on its fast path, read from the built kernel's SASS (MUFU.RCP,
+#   FCHK, five FFMA, the branch over the slow path and the BSSY/BSYNC pair
+#   around it), for the bound printed beside it.
 FOLD_TAIL_OPS = 14
+FOLD_DIVIDE_INSTRS = 10
 # * one compare-exchange of the binning kernel's sorting networks (a 64-bit
 #   compare and its select).
 SORT_CE_OPS = 1
@@ -395,11 +431,12 @@ def check_closest(args, label):
 
 
 def batch_record(label, kernel, plain, args, walk_bound, launches, card,
-                 plain_reps=PLAIN_REPS):
+                 plain_reps=PLAIN_REPS, plain_warmup=1):
     """Time one kernel and its plain version on one batch."""
     rec = dict(batch=label, launches=launches,
                ms=time_ms(lambda: kernel(*args), KERNEL_REPS),
-               plain_ms=time_ms(lambda: plain(*args), plain_reps, warmup=1),
+               plain_ms=time_ms(lambda: plain(*args), plain_reps,
+                                warmup=plain_warmup),
                bound_ms=walk_bound[0], bound_by=walk_bound[1])
     print(f"{kernel.__name__} at the {label} batch: kernel {rec['ms']:.4f} ms, "
           f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
@@ -408,12 +445,12 @@ def batch_record(label, kernel, plain, args, walk_bound, launches, card,
     return rec
 
 
-def closest_batch(args, label, launches, card):
+def closest_batch(args, label, launches, card, **plain_timing):
     """closest_hit against its plain version on one batch, timed: the
     batch's record and the largest t difference among equal winners."""
     err, walk_bound = check_closest(args, label)
     return batch_record(label, ci.closest_hit, ci.closest_hit_plain, args,
-                        walk_bound, launches, card), err
+                        walk_bound, launches, card, **plain_timing), err
 
 
 def kernels_vs_plain(device, card):
@@ -567,6 +604,11 @@ def small_shadow_batch(device):
     return any_hit_args((p + d * 1e-3).contiguous(), d, t_max, x["bvh"])
 
 
+def launched(before: dict) -> dict:
+    """The kernel launches made since ``before = dict(ci.LAUNCHES)``."""
+    return {k: v - before[k] for k, v in ci.LAUNCHES.items()}
+
+
 def whitted_path(r, card):
     """Phase 6 on the debug path's Renderer (bench_scene(100_000), 1080p)."""
     width, height = r.width, r.height
@@ -577,9 +619,6 @@ def whitted_path(r, card):
     # (Morton-sorted, 4 lights x the pass's rays), with the kernel launches
     # each call made.
     rays, shadows = [], []
-
-    def launched(before):
-        return {k: v - before[k] for k, v in ci.LAUNCHES.items()}
 
     def capturing_isect(o, d, geo, tile_r=None):
         before = dict(ci.LAUNCHES)
@@ -679,6 +718,196 @@ def whitted_path(r, card):
           f"bench_scene(100_000): {frame_ms:.4f} ms median of {WHITTED_REPS} "
           f"[{card}]")
     return record, (bounce, bounce_err), (bin_batches, bin_err), launches
+
+
+def pass_kernel_ms(fn) -> list:
+    """Device ms of the hand-written kernels in one call of ``fn``, in
+    launch order, as (kernel, ms) pairs (torch.profiler's CUDA records)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    own = ("bin_lists", "closest_hit", "any_hit")
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and any(k in e.name for k in own)),
+                    key=lambda e: e.time_range.start)
+    return [(next(k for k in own if k in e.name),
+             e.time_range.elapsed_us() / 1e3) for e in events]
+
+
+def pt_path(r, card):
+    """Phase 9 on the debug path's Renderer (bench_scene(100_000), 1080p)."""
+    width, height, device = r.width, r.height, r.device
+    pos, rot = r.camera.snapshot()
+    cb = ci.cluster_rows(r.bvh.clusters)
+
+    # Each pass's ray batch and shadow batch as the sample hands them over
+    # (kept for the first bounce pass only), with the size of their lists.
+    passes, kept = [], {}
+
+    def capturing_isect(o, d, geo, tile_r=None):
+        before = dict(ci.LAUNCHES)
+        hit = r.intersect_fn(o, d, geo, tile_r=tile_r)
+        made = launched(before)
+        tr = tile_r or TILE_R
+        po, pd, _ = ci.pad_and_seed(o, d, r.bvh.clusters, tr)
+        _, _, counts, longest = ci.bin_lists(ci.tile_params(po, pd, tr), cb)
+        passes.append(dict(alive=o.shape[0], tiles=counts.shape[0], tile_r=tr,
+                           listed=int(counts.sum()), longest=longest,
+                           items=closest_items(counts)))
+        if len(passes) == 2:
+            kept["rays"] = (o.clone(), d.clone(), tr, made)
+        return hit
+
+    def capturing_occ(geo):
+        occluded = r.occluder_factory(geo)
+
+        def occ(o, d, t_max):
+            before = dict(ci.LAUNCHES)
+            blocked = occluded(o, d, t_max)
+            made = launched(before)
+            counts = ci.anyhit_schedule(o, d, t_max, r.bvh.clusters,
+                                        srows=r.bvh.srows)[5]
+            passes[-1].update(
+                shadow_rays=o.shape[0], shadow_armed=int((t_max > T_MIN).sum()),
+                shadow_tiles=counts.shape[0], shadow_listed=int(counts.sum()),
+                shadow_longest=int(counts.max()),
+                shadow_items=ci.anyhit_work_items(counts)[0].shape[0])
+            if len(passes) == 2:
+                kept["shadow"] = (o.clone(), d.clone(), t_max.clone(), made)
+            return blocked
+        return occ
+
+    def sample(seed, isect=r.intersect_fn, occf=r.occluder_factory):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return pathtrace_tile(r.dscene, pos, rot, gen, width, height,
+                              max_depth=PT_DEPTH, intersect_fn=isect,
+                              occluder_factory=occf)
+
+    sample(1, capturing_isect, capturing_occ)
+    require(len(passes) == PT_DEPTH and "shadow" in kept,
+            f"the PT sample ran {len(passes)} passes, expected {PT_DEPTH}")
+    # A pass launches bin_lists, closest_hit, bin_lists, any_hit, in order
+    # (the profiler may miss a record at the start of its window: one more
+    # profiled sample is taken then).
+    order = ["bin_lists", "closest_hit", "bin_lists", "any_hit"] * PT_DEPTH
+    kernel_ms = pass_kernel_ms(lambda: sample(1))
+    if [k for k, _ in kernel_ms] != order:
+        kernel_ms = pass_kernel_ms(lambda: sample(1))
+    require([k for k, _ in kernel_ms] == order,
+            f"the profiled PT sample's kernels: {[k for k, _ in kernel_ms]}")
+    for i, p in enumerate(passes):
+        ms = [f"{m:.4f}" for _, m in kernel_ms[4 * i:4 * i + 4]]
+        print(f"PT pass {i}: {p['alive']} alive rays in {p['tiles']} tiles x "
+              f"{p['tile_r']}: {p['listed']} listed pairs, longest list "
+              f"{p['longest']}, {p['items']} work items; bin_lists "
+              f"{ms[0]} ms, closest_hit {ms[1]} ms; shadow batch "
+              f"{p['shadow_rays']} rays ({p['shadow_armed']} armed) in "
+              f"{p['shadow_tiles']} tiles: {p['shadow_listed']} listed pairs, "
+              f"longest list {p['shadow_longest']}, {p['shadow_items']} work "
+              f"items; bin_lists {ms[2]} ms, any_hit {ms[3]} ms "
+              f"(device time, profiler) [{card}]")
+
+    # The kernels at the first bounce pass's batches, against their plain
+    # versions (one timed plain call each: the walks are long here).
+    label = "100k 1080p PT bounce"
+    o, d, tile_r, launches = kept["rays"]
+    po, pd, _ = ci.pad_and_seed(o, d, r.bvh.clusters, tile_r)
+    rec, _, bin_err = bin_batch(label, ci.tile_params(po, pd, tile_r), cb, None,
+                                launches["bin_clusters"], card)
+    bin_batches = [rec]
+    del po, pd
+    closest, closest_err = closest_batch(
+        closest_args(o, d, r.bvh, tile_r), label, launches["closest_hit"], card,
+        plain_reps=1, plain_warmup=0)
+    label = "100k 1080p PT bounce shadow"
+    o, d, t_max, launches = kept["shadow"]
+    po, pd, ptm, t_cap = ci.pad_and_cap(o, d, t_max, TILE_R)
+    rec, _, e = bin_batch(label, ci.tile_params(po, pd, TILE_R, t_cap=t_cap,
+                                                live=ptm > T_MIN),
+                          cb, None, launches["bin_clusters"], card)
+    bin_batches.append(rec)
+    bin_err = max(bin_err, e)
+    del po, pd, ptm, t_cap
+    args = any_hit_args(o, d, t_max, r.bvh)
+    any_err, walk_bound = check_any_hit(args, label)
+    any_rec = batch_record(label, ci.any_hit, ci.any_hit_plain, args,
+                           walk_bound, launches["any_hit"], card,
+                           plain_reps=1, plain_warmup=0)
+    del args, kept, o, d, t_max
+    torch.cuda.empty_cache()
+
+    # The port's own entry point, with a checkpoint.
+    tmp = tempfile.gettempdir()
+    png = os.path.join(tmp, "chip_smoke_pt.png")
+    state = os.path.join(tmp, "chip_smoke_pt.npz")
+    ci.reset_launch_counts()
+    viewer_main(["pathtrace", "--builtin", "bench_scene", "--width", str(width),
+                 "--height", str(height), "--depth", str(PT_DEPTH),
+                 "--samples", str(PT_SAMPLES), "--state", state, "-o", png])
+    torch.cuda.synchronize()
+    launches = dict(ci.LAUNCHES)
+    print(f"PT path launches ({PT_SAMPLES} samples): {launches}")
+    for name in ("bin_clusters", "closest_hit", "any_hit"):
+        require(launches[name] > 0, f"{name} was not launched on the PT path")
+    resumed = PathTracer(r.dscene, width, height, max_depth=PT_DEPTH,
+                         intersect_fn=r.intersect_fn,
+                         occluder_factory=r.occluder_factory)
+    resumed.load_state(state)
+    img = resumed.image()
+    require(resumed.n_samples == PT_SAMPLES, f"checkpoint at {resumed.n_samples} spp")
+    require(tuple(img.shape) == (height, width, 3), "PT image shape")
+    require(bool(torch.isfinite(img).all()), "PT image not finite")
+    require(bool((img >= 0).all()), "PT image has negative radiance")
+    shaded = int((img != r.dscene.background_color).any(dim=-1).sum())
+    require(shaded > 0, "PT image is all background")
+    again = os.path.join(tmp, "chip_smoke_pt_resumed.png")
+    write_png(again, to_u8(img.clamp(0.0, 1.0) ** (1.0 / 2.2)))
+    with open(png, "rb") as a, open(again, "rb") as b:
+        same = a.read() == b.read()
+    print(f"PT: wrote {png} and {state}; {shaded} of {width * height} pixels "
+          f"not background; the checkpoint's image equals the PNG: {same}")
+    require(same, "the checkpoint's image differs from the viewer's PNG")
+    del resumed
+
+    direct = PathTracer(r.dscene, width, height, max_depth=1,
+                        intersect_fn=r.intersect_fn,
+                        occluder_factory=r.occluder_factory, seed=1)
+    direct.step(pos, rot, n=PT_DIRECT_SAMPLES)
+    ref, _ = render_whitted(r.dscene, pos, rot, width, height, max_depth=1,
+                            intersect_fn=r.intersect_fn,
+                            occluder_factory=r.occluder_factory)
+    # Held on the pixels whose primary hit is diffuse: at its last depth the
+    # Whitted frame shades the mirror ground as diffuse where the path
+    # tracer gives it no direct term, and the sky is equal by construction.
+    tile, tile_r = pick_schedule(height, width)
+    o, d = generate_rays_tiled(pos, rot, width, height, *tile, device=device)
+    geo = r.dscene.geometry
+    hit, _, _, _, rec = hit_record(o, d, geo.packed,
+                                   r.intersect_fn(o, d, geo, tile_r=tile_r))
+    diffuse = hit.mask & (rec[:, 30].to(torch.int32) == MaterialType.DIFFUSE)
+    diffuse = untile(diffuse[:, None], width, height, tile)[..., 0]
+    lit = (ref.amax(dim=-1) > 0.02) & diffuse
+    require(int(lit.sum()) > 0, "no lit diffuse pixel")
+    err = float((direct.image() - ref).abs().mean(dim=-1)[lit].median())
+    print(f"PT depth 1, {PT_DIRECT_SAMPLES} samples, against the Whitted "
+          f"depth-1 frame: median abs error {err:.6f} over the "
+          f"{int(lit.sum())} lit pixels of {int(diffuse.sum())} whose primary "
+          f"hit is diffuse (gate {PT_DIRECT_ERR})")
+    require(err < PT_DIRECT_ERR, f"PT depth-1 error {err}")
+    del direct, ref
+
+    pt = PathTracer(r.dscene, width, height, max_depth=PT_DEPTH,
+                    intersect_fn=r.intersect_fn,
+                    occluder_factory=r.occluder_factory, seed=2)
+    sample_ms = time_ms(lambda: pt.step(pos, rot), PT_REPS, warmup=1)
+    print(f"PT sample at {width}x{height}, bench_scene(100_000), depth "
+          f"{PT_DEPTH}: {sample_ms:.4f} ms median of {PT_REPS}; alive per "
+          f"pass {[p['alive'] for p in passes]} [{card}]")
+    return ((bin_batches, bin_err), (closest, closest_err), (any_rec, any_err),
+            launches)
 
 
 def huge_path(device, card):
@@ -792,8 +1021,9 @@ def precision_path(device, card):
               "split3": bound(moved, tail, 3 * product)}
     records = {}
     for variant in pm.VARIANTS:
-        got = pm.min_t(pm.precision_fold(variant, w, rays))
-        want = pm.min_t(pm.precision_fold_plain(variant, w, rays))
+        packed = pm.precision_fold(variant, w, rays)
+        packed_plain = pm.precision_fold_plain(variant, w, rays)
+        got, want = pm.min_t(packed), pm.min_t(packed_plain)
         torch.cuda.synchronize()
         hit = torch.isfinite(want)
         same_miss = torch.equal(torch.isinf(got), ~hit)
@@ -807,6 +1037,14 @@ def precision_path(device, card):
         require(same_miss, f"precision_micro ({variant}) sentinel sets differ")
         require(agree >= FOLD_AGREE,
                 f"precision_micro ({variant}) t agreement {agree}")
+        if variant == "highest":
+            # Full f32 on both sides: most rays pick the same candidate and
+            # round it alike, so the packed outputs themselves mostly match.
+            equal = (packed == packed_plain).float().mean().item()
+            print(f"[precision micro S={w.shape[0]}] highest: packed output "
+                  f"equal to the plain version's on {equal:.6f} of rays")
+            require(equal >= FOLD_AGREE,
+                    f"precision_micro (highest) packed outputs equal on {equal}")
         # A launch takes ~0.1 ms, about what the host needs to enqueue one,
         # so both are timed as runs of calls back to back (ms per call).
         ms = pm.time_launches(lambda: pm.precision_fold(variant, w, rays),
@@ -824,6 +1062,12 @@ def precision_path(device, card):
             max_abs_err=diff.max().item() if hit.any() else 0.0, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None)
+        if variant == "highest":
+            longer = bound(moved, product + tail
+                           + candidates * (FOLD_DIVIDE_INSTRS - 1))[0]
+            print(f"precision_micro highest: bound {longer:.4f} ms with the "
+                  f"divide counted as the {FOLD_DIVIDE_INSTRS} instructions it "
+                  f"takes, not as 1 operation")
     return records
 
 
@@ -861,12 +1105,20 @@ def main() -> int:
      whitted_launches) = whitted_path(r, card)
     binner["batches"] += bin_batches
     binner["max_abs_err"] = max(binner["max_abs_err"], bin_err)
+    ((bin_batches, bin_err), (pt_bounce, pt_bounce_err), (pt_shadow, pt_shadow_err),
+     _) = pt_path(r, card)
+    binner["batches"] += bin_batches
+    binner["max_abs_err"] = max(binner["max_abs_err"], bin_err)
+    records["any_hit"]["batches"].append(pt_shadow)
+    records["any_hit"]["max_abs_err"] = max(records["any_hit"]["max_abs_err"],
+                                            pt_shadow_err)
     del r
     torch.cuda.empty_cache()
     records["bin_clusters_super"], (huge, huge_err), huge_launches = huge_path(
         device, card)
-    closest["batches"] += [bounce, huge]
-    closest["max_abs_err"] = max(closest["max_abs_err"], bounce_err, huge_err)
+    closest["batches"] += [bounce, pt_bounce, huge]
+    closest["max_abs_err"] = max(closest["max_abs_err"], bounce_err,
+                                 pt_bounce_err, huge_err)
     torch.cuda.empty_cache()
     variants = precision_path(device, card)
 

@@ -33,19 +33,30 @@
 // candidates at 14 f32 operations (negate, divide, two multiply-adds
 // rounded apart, two subtracts, four compares, a select and a min), 0.94
 // GFLOP on the CUDA cores; w is read once, 50.3 MB, 0.015 ms.  So highest
-// is bound by its f32 arithmetic (7.38 GFLOP, 0.110 ms); default by memory
-// (its 0.0065 ms of tensor-core work and 0.014 ms of tail run on different
-// units, both under 0.015 ms); split3 by its three tensor-core products
-// (0.0195 ms).  The design:
+// is bound by its f32 arithmetic (7.38 GFLOP, 0.110 ms; 0.119 ms with the
+// IEEE divide counted as the ten instructions of its fast path, and the
+// tail's compares and selects run on the same ports as the FMAs);
+// default by memory (its 0.0065 ms of tensor-core work and 0.014 ms of tail
+// run on different units, both under 0.015 ms); split3 by its three
+// tensor-core products (0.0195 ms).  The design:
 //   * a persistent grid, each CTA walking steps blockIdx.x, + gridDim.x, ...
-//     with the next step's slice of w prefetched into registers while the
-//     current one is folded; each ray's running min stays in registers and
-//     one atomicMin per (CTA, ray) publishes it (the packed values are
-//     non-negative ints, so the result does not depend on order);
-//   * highest: one ray per thread (its 8 operands in registers); w[s] is
-//     staged in shared memory transposed to [k][c][j], so a thread reads a
-//     triangle's 48 weights as 12 broadcast float4 loads and runs the six
-//     depth-8 dots and the tail in registers;
+//     with the next step's slice of w on its way while the current one is
+//     folded; each ray's running min stays in registers and one atomicMin
+//     per (thread, ray) publishes it (the packed values are non-negative
+//     ints, so the result does not depend on order);
+//   * highest: what limits it is the rate of instructions, so each shared
+//     load must feed many FMAs and each thread must carry independent chains.
+//     A thread holds 4 rays (32 operands in registers); w[s] is copied as it
+//     lies in device memory ([j][c K + k]) by cp.async into one of two
+//     shared buffers, so one float4 read at [j][c K + k..k+3] is one weight
+//     of 4 triangles and feeds 16 FMAs, every lane of a warp reading the
+//     same address (a broadcast, no bank conflict, no transposing store).
+//     The 24 dots of a block (6 rows x 4 triangles) times 4 rays are 96
+//     independent chains, each summed j = 0..7 in order, and the 16 tails
+//     that follow interleave, which covers the divide's latency.  A CTA is
+//     128 threads: two groups of 64 that each hold all 256 rays and fold
+//     one half of the step's triangles (the groups meet in the atomicMin),
+//     with one barrier a step;
 //   * default/split3: w[s] is converted once per step into bf16 A
 //     fragments in shared memory (and lo fragments for split3); each warp
 //     owns 32 rays (four n-tiles of 8, B fragments in registers for the
@@ -72,14 +83,12 @@ constexpr int kDepth = 8;             // contraction depth
 constexpr int kStepFloats = kDepth * kRows;  // 6144 floats of w per step
 constexpr int kThreads = 256;
 constexpr int kPerThread = kStepFloats / kThreads;  // 24
-constexpr int kStride = 52;  // highest: floats per staged triangle (48 used)
 constexpr int kMTiles = kK / 16;      // 8
 constexpr int kFrags = kMTiles * 6;   // 48 A fragments per step
 constexpr int kNTiles = 4;            // n-tiles of 8 rays per warp
 constexpr int kSentinel = 0x7ffffffe;  // 2**31 - 2
 constexpr float kTEps = 1e-3f;
 
-static_assert(kThreads == kRays, "highest: one ray per thread");
 static_assert(kThreads / 32 * kNTiles * 8 == kRays, "mma: 32 rays per warp");
 static_assert(kFrags * 32 == kPerThread / 4 * kThreads,
               "mma: each thread stages 6 fragment entries of 4 values");
@@ -100,60 +109,96 @@ __device__ __forceinline__ int fold_tail(float m0, float m1, float m2,
 // highest: f32 FMA on the CUDA cores
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void load_step_f32(const float* __restrict__ w,
-                                              int s, float (&buf)[kPerThread]) {
-  const float* src = w + static_cast<size_t>(s) * kStepFloats;
+constexpr int kTriBlock = 4;  // triangles folded together (one float4 of w)
+constexpr int kF32Rays = 4;       // rays a thread
+constexpr int kF32Threads = 128;  // threads a CTA
+constexpr int kF32Lanes = kRays / kF32Rays;  // 64 threads span the rays
+constexpr int kF32Share = kK / (kF32Threads / kF32Lanes);  // triangles a group
+constexpr int kStepPieces = kStepFloats / 4;  // 16-byte pieces of w per step
+
+static_assert(kF32Lanes % 32 == 0, "a warp reads one triangle block");
+static_assert(kStepPieces % kF32Threads == 0, "whole pieces per thread");
+
+// Start copying w[s] as it lies in device memory, [j][c K + k], into dst;
+// one commit group.
+__device__ __forceinline__ void stage_step(float* dst,
+                                           const float* __restrict__ w, int s) {
+  const float4* src =
+      reinterpret_cast<const float4*>(w + static_cast<size_t>(s) * kStepFloats);
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
 #pragma unroll
-  for (int i = 0; i < kPerThread; ++i)
-    buf[i] = __ldg(src + threadIdx.x + i * kThreads);
+  for (int i = 0; i < kStepPieces / kF32Threads; ++i) {
+    const int e = threadIdx.x + i * kF32Threads;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     base + 16u * static_cast<uint32_t>(e)),
+                 "l"(src + e)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Two groups of 64 threads each hold all 256 rays, 4 a thread, and fold
+// their own half of the step's triangles; a ray's groups meet in the
+// atomicMin.
+__global__ void __launch_bounds__(kF32Threads)
 fold_f32_kernel(const float* __restrict__ w, const float* __restrict__ rays,
                 int* __restrict__ out, int steps) {
-  __shared__ __align__(16) float s_w[kK * kStride];
-  const int r = threadIdx.x;
-  float ry[kDepth];
-#pragma unroll
-  for (int j = 0; j < kDepth; ++j) ry[j] = rays[j * kRays + r];
-  int best = kSentinel;
+  __shared__ __align__(16) float s_w[2][kStepFloats];
 
-  float buf[kPerThread];
+  const int lane = threadIdx.x % kF32Lanes;
+  const int k_first = threadIdx.x / kF32Lanes * kF32Share;
+  float ry[kF32Rays][kDepth];
+  int best[kF32Rays];
+#pragma unroll
+  for (int i = 0; i < kF32Rays; ++i) {
+#pragma unroll
+    for (int j = 0; j < kDepth; ++j)
+      ry[i][j] = rays[j * kRays + lane + i * kF32Lanes];
+    best[i] = kSentinel;
+  }
+
   int s = blockIdx.x;
-  if (s < steps) load_step_f32(w, s, buf);
-  for (; s < steps; s += gridDim.x) {
-    __syncthreads();  // the previous step's weights are consumed
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int e = threadIdx.x + i * kThreads;  // w[s] flat: j * 768 + c
-      const int j = e / kRows;
-      const int c = e % kRows;
-      s_w[(c % kK) * kStride + (c / kK) * kDepth + j] = buf[i];
-    }
+  if (s < steps) stage_step(s_w[0], w, s);
+  for (int cur = 0; s < steps; s += gridDim.x, cur ^= 1) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // Step s has landed for every thread, and the other buffer's readers
+    // (the previous step) are done.
     __syncthreads();
-    if (s + gridDim.x < steps) load_step_f32(w, s + gridDim.x, buf);
+    if (s + gridDim.x < steps) stage_step(s_w[cur ^ 1], w, s + gridDim.x);
 
-    for (int k = 0; k < kK; ++k) {
-      const float4* row = reinterpret_cast<const float4*>(s_w + k * kStride);
-      float m[6];
+#pragma unroll 1
+    for (int k = k_first; k < k_first + kF32Share; k += kTriBlock) {
+      // m[c][t][i]: row c K + k + t of mm for ray i, summed j = 0..7 in
+      // order, the first product rounded on its own.
+      float m[6][kTriBlock][kF32Rays];
 #pragma unroll
       for (int c = 0; c < 6; ++c) {
-        const float4 a = row[2 * c];
-        const float4 b = row[2 * c + 1];
-        float acc = a.x * ry[0];
-        acc = fmaf(a.y, ry[1], acc);
-        acc = fmaf(a.z, ry[2], acc);
-        acc = fmaf(a.w, ry[3], acc);
-        acc = fmaf(b.x, ry[4], acc);
-        acc = fmaf(b.y, ry[5], acc);
-        acc = fmaf(b.z, ry[6], acc);
-        acc = fmaf(b.w, ry[7], acc);
-        m[c] = acc;
+#pragma unroll
+        for (int j = 0; j < kDepth; ++j) {
+          const float4 a = *reinterpret_cast<const float4*>(
+              &s_w[cur][j * kRows + c * kK + k]);
+          const float av[kTriBlock] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+          for (int t = 0; t < kTriBlock; ++t) {
+#pragma unroll
+            for (int i = 0; i < kF32Rays; ++i)
+              m[c][t][i] = j == 0 ? av[t] * ry[i][0]
+                                  : fmaf(av[t], ry[i][j], m[c][t][i]);
+          }
+        }
       }
-      best = min(best, fold_tail(m[0], m[1], m[2], m[3], m[4], m[5]));
+#pragma unroll
+      for (int t = 0; t < kTriBlock; ++t) {
+#pragma unroll
+        for (int i = 0; i < kF32Rays; ++i)
+          best[i] = min(best[i], fold_tail(m[0][t][i], m[1][t][i], m[2][t][i],
+                                           m[3][t][i], m[4][t][i], m[5][t][i]));
+      }
     }
   }
-  atomicMin(out + r, best);
+#pragma unroll
+  for (int i = 0; i < kF32Rays; ++i)
+    atomicMin(out + lane + i * kF32Lanes, best[i]);
 }
 
 // ---------------------------------------------------------------------------
@@ -293,19 +338,19 @@ fold_mma_kernel(const float* __restrict__ w, const float* __restrict__ rays,
 }
 
 template <typename Kernel>
-int launch(Kernel kernel, const float* w, const float* rays, int* out,
-           int steps, cudaStream_t stream) {
+int launch(Kernel kernel, int threads, const float* w, const float* rays,
+           int* out, int steps, cudaStream_t stream) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
+                                                        threads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int slots = sms * (per_sm > 0 ? per_sm : 1);
   const int grid = steps < slots ? steps : slots;
-  kernel<<<grid, kThreads, 0, stream>>>(w, rays, out, steps);
+  kernel<<<grid, threads, 0, stream>>>(w, rays, out, steps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -318,11 +363,14 @@ extern "C" int dxrt_precision_fold(const float* w, const float* rays,
   if (steps < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (variant) {
     case 0:
-      return launch(fold_mma_kernel<false>, w, rays, out, steps, stream);
+      return launch(fold_mma_kernel<false>, kThreads, w, rays, out, steps,
+                    stream);
     case 1:
-      return launch(fold_f32_kernel, w, rays, out, steps, stream);
+      return launch(fold_f32_kernel, kF32Threads, w, rays, out, steps,
+                    stream);
     case 2:
-      return launch(fold_mma_kernel<true>, w, rays, out, steps, stream);
+      return launch(fold_mma_kernel<true>, kThreads, w, rays, out, steps,
+                    stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

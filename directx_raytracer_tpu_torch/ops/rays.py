@@ -2,9 +2,8 @@
 
 Counterpart of ``directx_raytracer_tpu/ops/rays.py`` (``T_MIN``/``T_MAX``,
 ``pick_schedule``, ``pick_tile``, ``generate_rays_tiled``,
-``generate_rays``, ``RGSS_OFFSETS``), with the same float-op order.  The
-row-band arguments of the JAX functions serve multi-device rendering and
-come with that slice.
+``generate_rays``, ``RGSS_OFFSETS``), with the same float-op order,
+row-band arguments (``row_start``, ``rows``) included.
 
 Reproduces HLSL/ray_tracing_shaders.hlsl:21-70, vectorized over the whole
 pixel grid:
@@ -87,18 +86,21 @@ def _offset(offset, device):
 
 def generate_rays_tiled(position, rotation, width: int, height: int,
                         tile_h: int, tile_w: int, offset=(0.5, 0.5),
-                        device="cuda"):
+                        row_start=0, rows: int | None = None, device="cuda"):
     """Primary rays in TILE-MAJOR order, computed arithmetically.
 
     Pixel (px, py) lands at flat index
     ((ty*tiles_x + tx) * tile_h + ry) * tile_w + rx, so each run of
     tile_h*tile_w rays is one pixel tile.  ``offset`` is the sub-pixel
-    sample position, (0.5, 0.5) the pixel center.  Returns origins, dirs
-    (N, 3) f32 on ``device``.
+    sample position, (0.5, 0.5) the pixel center.  ``row_start``/``rows``
+    cut the full-width band of pixel rows [row_start, row_start + rows) out
+    of the (width x height) frame (None: every row); tiles are counted
+    inside the band.  Returns origins, dirs (N, 3) f32 on ``device``.
     """
     pos, rot = _camera(position, rotation, device)
     off = _offset(offset, device)
-    ty_n, tx_n = height // tile_h, width // tile_w
+    rows = height if rows is None else rows
+    ty_n, tx_n = rows // tile_h, width // tile_w
     n = ty_n * tx_n * tile_h * tile_w
 
     i = torch.arange(n, dtype=torch.int32, device=device)
@@ -109,7 +111,7 @@ def generate_rays_tiled(position, rotation, width: int, height: int,
     tx = t2 % tx_n
     ty = t2 // tx_n
     px = (tx * tile_w + rx).to(torch.float32)
-    py = (ty * tile_h + ry).to(torch.float32)
+    py = (ty * tile_h + ry).to(torch.float32) + row_start
 
     x = (2.0 * ((px + off[0]) / width) - 1.0) * (width / height)
     y = 1.0 - 2.0 * ((py + off[1]) / height)
@@ -124,15 +126,20 @@ RGSS_OFFSETS = ((0.375, 0.125), (0.875, 0.375), (0.125, 0.625), (0.625, 0.875))
 
 
 def generate_rays(position, rotation, width: int, height: int,
-                  offset=(0.5, 0.5), device="cuda"):
-    """Primary rays for every pixel, in row-major pixel order (pixel
-    (px, py) at index py*width + px, the reference's UAV layout), sampled
-    at sub-pixel ``offset``.  Returns origins, dirs (H*W, 3) f32 on
-    ``device``."""
+                  offset=(0.5, 0.5), row_start=0, rows: int | None = None,
+                  device="cuda"):
+    """Primary rays for every pixel of the full-width band of pixel rows
+    [row_start, row_start + rows) (None: the whole frame), in row-major
+    pixel order (pixel (px, py) at index (py - row_start)*width + px, the
+    reference's UAV layout for the whole frame), sampled at sub-pixel
+    ``offset``.  ``width``/``height`` are the full frame's (the projection).
+    Returns origins, dirs (rows*W, 3) f32 on ``device``."""
     pos, rot = _camera(position, rotation, device)
     off = _offset(offset, device)
+    rows = height if rows is None else rows
     px = torch.arange(width, dtype=torch.float32, device=device)[None, :]
-    py = torch.arange(height, dtype=torch.float32, device=device)[:, None]
+    py = (torch.arange(rows, dtype=torch.float32, device=device)
+          + row_start)[:, None]
 
     x = (px + off[0]) / width
     y = (py + off[1]) / height
@@ -140,8 +147,8 @@ def generate_rays(position, rotation, width: int, height: int,
     y = 1.0 - 2.0 * y
     x = x * (width / height)
 
-    x = x.expand(height, width)
-    y = y.expand(height, width)
+    x = x.expand(rows, width)
+    y = y.expand(rows, width)
     dirs = _world_dirs(x, y, rot).reshape(-1, 3)
-    origins = pos.expand(height * width, 3).contiguous()
+    origins = pos.expand(rows * width, 3).contiguous()
     return origins, dirs

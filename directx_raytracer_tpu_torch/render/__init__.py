@@ -1,5 +1,6 @@
 """Renderers: counterpart of ``directx_raytracer_tpu/render/__init__.py``
-(the debug and Whitted renderers; the path tracer comes with its slice)."""
+(the debug and Whitted renderers; callers of the path tracer import
+``render.pathtrace``, as in the JAX package)."""
 
 from .debug import render_debug, untile
 from .renderer import Renderer

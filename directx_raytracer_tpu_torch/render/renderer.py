@@ -3,7 +3,9 @@
 Counterpart of ``directx_raytracer_tpu/render/renderer.py``
 (``describe_devices``, ``FrameStats``, ``Renderer.__init__``,
 ``Renderer.render_frame``, ``Renderer.render_whitted_frame``,
-``Renderer.to_u8_device``); the path-tracing frame comes with its slice.
+``Renderer.to_u8_device``).  As in the JAX package, path tracing is no
+frame of the Renderer: ``viewer pathtrace`` builds a ``PathTracer`` from its
+``dscene``, ``intersect_fn`` and ``occluder_factory``.
 The reference's renderer owns device setup, geometry upload,
 acceleration-structure build and the per-frame dispatch; here:
 

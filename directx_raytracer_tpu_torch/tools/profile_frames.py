@@ -1,9 +1,10 @@
 """Where a frame's device time goes: torch.profiler over a few frames.
 
 Renders ``bench_scene(100_000)`` at 1920x1080 through ``Renderer`` and
-traces ``--frames`` frames of each kind (the depth-3 Whitted frame and the
-mode-5 debug frame), then ``bench_scene(1_000_000)``'s mode-5 frame, each
-after one warm-up frame.  For each kind it prints the
+traces ``--frames`` frames of each kind (the depth-3 Whitted frame, the
+mode-5 debug frame and one depth-4 path-traced sample, a ``PathTracer``
+step built as ``viewer pathtrace`` builds it), then
+``bench_scene(1_000_000)``'s mode-5 frame, each after one warm-up frame.  For each kind it prints the
 host wall time of the window, the device's busy time (the union of every
 kernel's interval) and busy share, and the device time by kernel, largest
 first, grouped as the layers of PERF.md §5 name them: the hand-written
@@ -32,6 +33,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from directx_raytracer_tpu_torch import testscenes
+from directx_raytracer_tpu_torch.render.pathtrace import PathTracer
 from directx_raytracer_tpu_torch.render.renderer import Renderer
 
 SCENE = (100_000, 1920, 1080)
@@ -92,6 +94,14 @@ def trace(fn, frames: int) -> dict:
                       for e in host if e.self_cpu_time_total > 0])
 
 
+def pt_sample(r: Renderer, max_depth: int = 4):
+    """One path-traced sample per call, on a PathTracer over ``r``."""
+    pt = PathTracer(r.dscene, r.width, r.height, max_depth=max_depth,
+                    intersect_fn=r.intersect_fn,
+                    occluder_factory=r.occluder_factory)
+    return lambda: pt.step(*r.camera.snapshot())
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--frames", type=int, default=5)
@@ -101,11 +111,14 @@ def main(argv=None) -> int:
         print("profile_frames: no CUDA device", file=sys.stderr)
         return 1
     out = {"device": torch.cuda.get_device_name(0)}
-    frames = (("whitted_depth3", SCENE, lambda r: r.render_whitted_frame(max_depth=3)),
-              ("debug_mode5", SCENE, lambda r: r.render_frame(5)),
-              ("huge_mode5", HUGE_SCENE, lambda r: r.render_frame(5)))
+    # kind, scene, and what makes the kind's frame function for a Renderer
+    frames = (("whitted_depth3", SCENE,
+               lambda r: lambda: r.render_whitted_frame(max_depth=3)),
+              ("debug_mode5", SCENE, lambda r: lambda: r.render_frame(5)),
+              ("pt_depth4", SCENE, pt_sample),
+              ("huge_mode5", HUGE_SCENE, lambda r: lambda: r.render_frame(5)))
     r, built = None, None
-    for kind, scene, frame in frames:
+    for kind, scene, make in frames:
         if scene != built:
             r = None
             torch.cuda.empty_cache()
@@ -113,7 +126,7 @@ def main(argv=None) -> int:
             r = Renderer(testscenes.bench_scene(n_tris, width, height), width,
                          height, device="cuda")
             built = scene
-        res = trace(lambda: frame(r), args.frames)
+        res = trace(make(r), args.frames)
         out[kind] = res
         print(f"{kind}: {args.frames} frames, wall {res['wall_ms']:.3f} ms, "
               f"device busy {res['busy_ms']:.3f} ms ({100 * res['busy_share']:.1f}%)")

@@ -18,7 +18,9 @@ within 0.1% of the pixel count.  ``precision_fold``: identical sentinel
 sets and each ray's min t within 1e-3 relative (the repository's t gate,
 bench.py:156-164) on >= 99.5% of rays: kernel and plain version sum the
 depth-8 products in different orders, and the tail's cancellation
-amplifies that to ~1e-4 relative on the winning t.
+amplifies that to ~1e-4 relative on the winning t.  A path-traced sample
+through the kernels against the same sample (same generator seed) through
+their plain versions: the Whitted frame gate.
 """
 
 import numpy as np
@@ -35,6 +37,7 @@ from directx_raytracer_tpu_torch.models.scene import (
 from directx_raytracer_tpu_torch.ops.rays import generate_rays_tiled, pick_schedule
 from directx_raytracer_tpu_torch.ops.intersect import occluded_bruteforce
 from directx_raytracer_tpu_torch.render.debug import render_debug
+from directx_raytracer_tpu_torch.render.pathtrace import pathtrace_sample
 from directx_raytracer_tpu_torch.render.renderer import Renderer
 from directx_raytracer_tpu_torch.render.whitted import render_whitted
 from directx_raytracer_tpu_torch.tools import precision_micro as pm
@@ -472,3 +475,50 @@ def test_precision_fold_rejects_bad_operands(fold_inputs):
         pm.precision_fold("highest", w, rays[:, :, :128].contiguous())
     with pytest.raises(ValueError):
         pm.precision_fold("fast", w, rays)
+
+
+@pytest.mark.parametrize("steps", [8, 2048])
+def test_precision_fold_highest_matches_plain(cuda, steps):
+    """The highest variant (4 rays a thread, two triangle shares a CTA) at
+    fewer steps than CTAs and at the tool's own size."""
+    w, rays = pm.make_inputs(steps, cuda)
+    got = pm.min_t(pm.precision_fold("highest", w, rays))
+    want = pm.min_t(pm.precision_fold_plain("highest", w, rays))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.isfinite(want).sum() > pm.R // 2
+    assert pm.agreement(got, want, 1e-3) >= 0.995
+
+
+def test_pathtrace_sample_matches_plain(cuda):
+    """One depth-4 sample of bench_scene(3_000): every frame kernel
+    launches, and the sample agrees with the one the plain versions give
+    from the same generator seed."""
+    r = Renderer(testscenes.bench_scene(3_000, W, H), W, H, device=cuda)
+    pos, rot = r.camera.snapshot()
+    bvh = r.bvh
+
+    def plain_isect(o, d, geo, tile_r=None):
+        return intersect_fused(o, d, bvh.clusters, bvh.wrows, tile_r or TILE_R,
+                               plain=True, srows=bvh.srows)
+
+    def plain_occ(geo):
+        return lambda o, d, t_max: ci.occluded_fused(
+            o, d, bvh.clusters, bvh.wrows, t_max, plain=True, srows=bvh.srows)
+
+    def sample(isect, occf):
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        return pathtrace_sample(r.dscene, pos, rot, gen, W, H, max_depth=4,
+                                intersect_fn=isect, occluder_factory=occf)
+
+    ci.reset_launch_counts()
+    got = sample(r.intersect_fn, r.occluder_factory)
+    torch.cuda.synchronize()
+    for name in ("bin_clusters", "closest_hit", "any_hit"):
+        assert ci.LAUNCHES[name] > 0, name
+    before = dict(ci.LAUNCHES)
+    want = sample(plain_isect, plain_occ)
+    assert ci.LAUNCHES == before  # the plain versions launch nothing
+    assert torch.isfinite(got).all() and (got >= 0).all()
+    diff = np.abs(to_u8(got).astype(int) - to_u8(want).astype(int))
+    assert ((diff <= 2).all(axis=-1)).mean() >= 0.99

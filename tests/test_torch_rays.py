@@ -88,3 +88,48 @@ def test_offsets_match_jax(offset):
     jo, jd = jrays.generate_rays_tiled(pos, rot, w, h, 24, 32, offset)
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=ATOL, rtol=0)
     assert prays.RGSS_OFFSETS == jrays.RGSS_OFFSETS
+
+
+@pytest.mark.parametrize("row_start,rows", [(0, 24), (24, 24), (8, 16),
+                                            (5, 7), (41, 7)])
+def test_row_bands_match_jax(row_start, rows):
+    """``row_start``/``rows``: the band of the row-major raygen is exactly
+    that slice of the port's own full frame (the same ops on the same pixel
+    coordinates), and agrees with the JAX band like the full frame does.
+    Even bands (the frame cut in two, a tile-aligned inner band) and uneven
+    ones (7 rows from row 5, the last 7 rows)."""
+    pos, rot = cameras()["turned"].snapshot()
+    w, h = 64, 48
+    off = (0.25, 0.75)
+    o, d = prays.generate_rays(pos, rot, w, h, off, row_start, rows, device="cpu")
+    jo, jd = jrays.generate_rays(pos, rot, w, h, off, row_start, rows)
+    assert d.shape == (rows * w, 3) and o.shape == (rows * w, 3)
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(o.numpy(), np.asarray(jo))
+    _, full = prays.generate_rays(pos, rot, w, h, off, device="cpu")
+    np.testing.assert_array_equal(
+        d.numpy(), full.reshape(h, w, 3)[row_start:row_start + rows]
+        .reshape(-1, 3).numpy())
+
+
+@pytest.mark.parametrize("row_start,rows,tile", [(0, 24, (24, 32)),
+                                                 (24, 24, (8, 32)),
+                                                 (16, 8, (8, 32)),
+                                                 (5, 14, (7, 16))])
+def test_tiled_row_bands_match_jax(row_start, rows, tile):
+    """The tile-major band: tiles are counted inside the band, and
+    untiling it gives the row-major band exactly."""
+    pos, rot = cameras()["bench"].snapshot()
+    w, h = 64, 48
+    off = (0.625, 0.875)
+    o, d = prays.generate_rays_tiled(pos, rot, w, h, *tile, off, row_start,
+                                     rows, device="cpu")
+    jo, jd = jrays.generate_rays_tiled(pos, rot, w, h, *tile, off, row_start,
+                                       rows)
+    assert d.shape == (rows * w, 3)
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(o.numpy(), np.asarray(jo))
+    _, band = prays.generate_rays(pos, rot, w, h, off, row_start, rows,
+                                  device="cpu")
+    np.testing.assert_array_equal(
+        untile(d, w, rows, tile).reshape(-1, 3).numpy(), band.numpy())

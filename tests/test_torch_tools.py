@@ -1,11 +1,18 @@
 """The port's frame profiler (tools/profile_frames.py) on the CPU: its
 interval union and its layer grouping, and that it refuses to run without
-a CUDA device (a CPU profile says nothing of the card)."""
+a CUDA device (a CPU profile says nothing of the card).  The path tracer's
+timing tool (tools/pt_bench.py): the same refusal, its ``--device cpu`` run
+at a small size, and ``--dragon`` without the asset."""
+
+import re
 
 import pytest
 import torch
 
+from directx_raytracer_tpu_torch import testscenes
+from directx_raytracer_tpu_torch.render.renderer import Renderer
 from directx_raytracer_tpu_torch.tools import profile_frames as pf
+from directx_raytracer_tpu_torch.tools import pt_bench
 
 
 @pytest.mark.parametrize("intervals,want", [
@@ -32,3 +39,29 @@ def test_refuses_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     assert pf.main(["--frames", "1"]) == 1
+
+
+def test_pt_frame_kind_takes_one_sample_a_call():
+    r = Renderer(testscenes.cornell_box(32, 24), 32, 24, device="cpu")
+    frame = pf.pt_sample(r, max_depth=2)
+    assert frame().n_samples == 1 and frame().n_samples == 2
+
+
+def test_pt_bench_refuses_without_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert pt_bench.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_pt_bench_runs_on_the_cpu(capsys):
+    assert pt_bench.main(["--device", "cpu", "--tris", "3000", "--width", "96",
+                          "--height", "48", "--depth", "2", "--samples", "2"]) == 0
+    assert re.fullmatch(
+        r"pt 3000tris 96x48 depth=2: \d+\.\d{4} ms/sample \(mean of 2\) \[cpu\]",
+        capsys.readouterr().out.strip())
+
+
+def test_pt_bench_dragon_needs_the_asset(capsys):
+    assert pt_bench.main(["--device", "cpu", "--dragon"]) == 1
+    assert "Dragon.crtscene" in capsys.readouterr().err
