@@ -5,6 +5,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py multi`` runs phases 1, 2 and 10 alone and prints no
+kernels line: on a host with four cards its four processes take a card each
+and talk over nccl, which one card cannot show.)
+
 Phases, each of which raises (exit code != 0) on failure:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions; no
@@ -68,7 +72,44 @@ Phases, each of which raises (exit code != 0) on failure:
    Whitted depth-1 frame (median abs error < 0.02 over the lit pixels
    whose primary hit is diffuse: at its last depth the Whitted frame
    shades a mirror as diffuse, where the path tracer gives it no direct
-   term); and ms per depth-4 sample.
+   term); and ms per depth-4 sample;
+10. multi-device rendering on the card (run on the 100k scene, before
+   phase 7): first, in this process, the last rank's shard of the Whitted
+   frame and of the path-traced accumulation (whitted_shard,
+   pathtrace_shard) with the batches captured where the shard hands them
+   over: the binning kernel, closest_hit and any_hit against their plain
+   versions, timed beside their bounds, at the 540-row stripe's primary
+   batch (640-ray tiles, its own schedule, under a sample offset) and
+   primary shadow batch and at the stripe's first path-tracing bounce and
+   its shadow batch; then parallel.launch starts a 2 x 2 (tiles x samples) grid of four
+   processes, all on cuda:0 and joined over gloo (NCCL refuses two ranks on
+   one device), each of which builds bench_scene(100_000) on the card and
+   calls render_whitted_multichip (1920x1080, depth 3, spp 4) through the
+   BVH kernels, with its own launch counters reset just before and read
+   just after: every rank must have rendered on the card and launched
+   bin_clusters, closest_hit and any_hit; rank 0's frame must match the
+   single-process render_whitted(spp=4) frame at the frame gate and to
+   1e-4 a value, and the summed alive counts must match; then
+   pathtrace_multichip (spp 4, depth 4) on the same grid: finite,
+   non-negative, not all background, equal to 1e-5 to the sum of
+   pathtrace_shard over every (t, s) made in this process (the same
+   seeds), and its block means (the statistic of
+   tests/test_sharding.py:118-125) within 0.01 of a single-process 4-sample
+   PathTracer image's; wall seconds per call; a failing rank fails the run;
+11. the checks: with DXRT_CHECK=1 the Renderer's Whitted frame is clean and
+   equals the unarmed frame; a NaN light intensity raises CheckError
+   ("non-finite"); armed and unarmed frame ms;
+12. the native parser: bench_scene(100_000) written with the port's dumps,
+   loaded with the native C++ parser (built with g++ here) and with the
+   Python parser: equal field for field; both parse times;
+13. the oracles on the card: on bench_scene(3_000) at 96x48,
+   traverse_closest over build_lbvh, intersect_clustered, intersect_fused
+   (the kernels), closest_hit_plain and intersect_bruteforce must agree
+   with brute force at the intersection gates; traverse_occluded and
+   occluded_clustered with any_hit on the small shadow batch; the binning
+   oracle's visit sets must equal bin_lists's at the 100k primary batch;
+   build_lbvh(100_000) and traverse_closest on a 64k-ray block are timed
+   (an oracle's times, not a result).
 
 Each kernel's line in the kernels JSON also carries its bound (the least
 time the card could take for the same work: bytes over the memory rate or
@@ -86,7 +127,10 @@ the first batch's.  Each walk batch prints its work items, longest list,
 visited of binned pairs and (ray, triangle) tests.  The binning kernel's
 ms is its device time from the profiler (torch.profiler's CUDA kernel
 records): CUDA events around one call of a launch this short would time
-the host's enqueue.
+the host's enqueue.  Each such window starts with 16 launches that are not
+timed and a pause, because the profiler loses the first records of a window,
+and a window that lost more is taken once more (``device_ms``); a line
+before the kernels line says what every window saw.
 
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {...}}.
@@ -106,19 +150,37 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+import dataclasses
+
 from directx_raytracer_tpu_torch import testscenes
-from directx_raytracer_tpu_torch.bvh import TILE_R, build_bvh, intersect_fused
+from directx_raytracer_tpu_torch.bvh import (TILE_R, build_bvh, build_lbvh,
+                                             intersect_clustered,
+                                             intersect_fused,
+                                             occluded_clustered,
+                                             traverse_closest,
+                                             traverse_occluded)
 from directx_raytracer_tpu_torch.bvh import cuda_intersect as ci
+from directx_raytracer_tpu_torch.bvh.binning_oracle import bin_clusters
+from directx_raytracer_tpu_torch.io import crtscene
 from directx_raytracer_tpu_torch.models.material import MaterialType
 from directx_raytracer_tpu_torch.models.scene import build_device_scene
 from directx_raytracer_tpu_torch.ops.debug_shading import MISS_COLOR
-from directx_raytracer_tpu_torch.ops.intersect import hit_record
+from directx_raytracer_tpu_torch.ops.intersect import (hit_record,
+                                                       intersect_bruteforce)
+from directx_raytracer_tpu_torch.parallel import (launch, local_device,
+                                                  make_mesh,
+                                                  pathtrace_multichip,
+                                                  pathtrace_shard,
+                                                  render_whitted_multichip,
+                                                  untile_multichip,
+                                                  whitted_shard)
 from directx_raytracer_tpu_torch.ops.rays import T_MIN, generate_rays_tiled, pick_schedule
 from directx_raytracer_tpu_torch.render.debug import render_debug, untile
 from directx_raytracer_tpu_torch.render.pathtrace import PathTracer, pathtrace_tile
 from directx_raytracer_tpu_torch.render.renderer import Renderer
 from directx_raytracer_tpu_torch.render.whitted import render_whitted
 from directx_raytracer_tpu_torch.tools import precision_micro as pm
+from directx_raytracer_tpu_torch.utils import checks
 from directx_raytracer_tpu_torch.utils.image import to_u8, write_png
 from directx_raytracer_tpu_torch.viewer.app import main as viewer_main
 
@@ -135,6 +197,14 @@ PT_DEPTH = 4  # the tools/pt_bench.py workload: 1080p, 100k, depth 4
 PT_SAMPLES = 4
 PT_REPS = 5
 PT_DIRECT_SAMPLES = 8
+MULTI_GRID = (2, 2)  # tiles x samples: four processes on the one card
+MULTI_SPP = 4
+MULTI_TIMEOUT = 420  # seconds for the four processes, start to end
+WALK_BLOCK = 65536  # rays of the timed LBVH walk
+PROFILE_LEAD = 16  # launches at the start of a profiler window, not timed
+PROFILE_PAUSE_S = 0.010  # between them and the timed launches
+START = time.perf_counter()
+WINDOWS = []  # (age of the process s, launches, records seen) per window
 
 # Tolerances, kernel vs plain version on the same card and inputs:
 # * the binning kernel computes the plain version's slab ops in the same
@@ -177,6 +247,31 @@ FOLD_AGREE = 0.995
 #   abs error over lit pixels (Whitted max channel > 0.02) under 0.02, the
 #   gate of tests/test_pathtrace.py:19-33 (the jitter blurs edges).
 PT_DIRECT_ERR = 0.02
+
+# * the oracles against brute force: the hit and winner gates above, and t
+#   within the repository's own 1e-3 relative (bench.py:156-164) on 99.9% of
+#   common hits: the rope walk evaluates Moeller-Trumbore where brute force
+#   evaluates the Woop form, so t differs by more than a few ulps.
+ORACLE_T_RTOL = 1e-3
+# * a multi-process Whitted frame against the single-process one: the same
+#   samples summed in another order (the all-reduce), so besides the frame
+#   gate every pixel within 1e-4, the tolerance tests/test_sharding.py:77-79
+#   gives that reordering.
+MULTI_ATOL = 1e-4
+# * a multi-process path-traced accumulation against the sum, made in one
+#   process, of pathtrace_shard over every (t, s): the same seeds, so the same
+#   samples; only the order of the float adds differs (the all-reduce, and
+#   index_add_'s atomics): every value within 1e-5 + 1e-5 |value|.
+PT_SHARD_TOL = 1e-5
+# * and against a single-process accumulation of as many samples from other
+#   streams: block means (4 x 4 blocks of the frame, the statistic of
+#   tests/test_sharding.py:118-125) within 0.01 relative and the image means
+#   within 0.002.  That test's own gates (0.2 and 0.05) are sized for 16
+#   samples of a 64 x 48 image; at 4 samples of 1920 x 1080 a block averages
+#   518,400 samples, and two independent images read about 0.0003 and
+#   0.00002, while a lost sample shard or a missing rescale reads above 0.05.
+PT_BLOCK_REL = 0.01
+PT_MEAN_GAP = 0.002
 
 # The least time the card could take (NVIDIA's data-sheet rates of an
 # H100 SXM at its 700 W limit, dense): bytes over the memory rate,
@@ -224,7 +319,10 @@ def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip()
+    lines = out.stdout.strip().splitlines()
+    if len(lines) > 1 and len(set(lines)) == 1:  # several cards, all alike
+        return f"{len(lines)} x {lines[0]}"
+    return "; ".join(lines)
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -246,19 +344,55 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 def device_ms(fn, name: str, reps: int = KERNEL_REPS) -> float:
     """Median device time of the kernel ``name`` over ``reps`` calls of
     ``fn`` (each launching it once), from torch.profiler's CUDA kernel
-    records: no host time in it."""
+    records: no host time in it.
+
+    The window opens with ``PROFILE_LEAD`` calls that are not timed, a
+    synchronize and a short pause, because torch.profiler returns no device
+    record for the first launches of a window, and for more of them the
+    older the process, whatever it did before: of 30 launches back to back
+    none is lost in its first 20 s, 2 at 60 s and 3 at 100 s, the same
+    after sleeping as after rendering (measured on an H100 by
+    tools/profiler_probe.py of the package).  A 3-call window late in the
+    run therefore came back empty every time.  Besides, a window now and
+    then loses many or all of its records, at any age and for no cause that
+    probe could find: of 300 windows of 46 launches back to back 5 lost 12
+    to 46 records; of 300 windows of this shape, 298 returned every timed
+    record, one all but one and one none.  A window with fewer than ``reps``
+    records is therefore taken once more, and a second one fails the run.
+    ``WINDOWS`` keeps what every window saw, and the run prints it."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(2):
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == DeviceType.CUDA and name in e.name]
-    # The profiler may miss a record at the start of its window.
-    require(reps // 2 <= len(times) <= reps,
-            f"the profiler saw {len(times)} launches of {name} in {reps} calls")
-    return float(np.median(times))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAUSE_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA and name in e.name),
+                        key=lambda e: e.time_range.start)
+        WINDOWS.append((time.perf_counter() - START, PROFILE_LEAD + reps,
+                        len(events)))
+        if len(events) >= reps:
+            break
+    require(reps <= len(events) <= PROFILE_LEAD + reps,
+            f"the profiler saw {len(events)} launches of {name} in "
+            f"{PROFILE_LEAD + reps} calls, two windows in a row")
+    return float(np.median([e.time_range.elapsed_us() / 1e3
+                            for e in events[-reps:]]))
+
+
+def windows_line() -> str:
+    """What the profiler windows of ``device_ms`` saw, for the log."""
+    lost = ", ".join(f"{launched - seen} of {launched} at {age:.0f} s"
+                     for age, launched, seen in WINDOWS)
+    return (f"profiler windows: {len(WINDOWS)}, each opened by {PROFILE_LEAD} "
+            f"launches that are not timed; device records missing, by the "
+            f"age of the process: {lost}")
 
 
 def require(ok: bool, what: str) -> None:
@@ -609,24 +743,20 @@ def launched(before: dict) -> dict:
     return {k: v - before[k] for k, v in ci.LAUNCHES.items()}
 
 
-def whitted_path(r, card):
-    """Phase 6 on the debug path's Renderer (bench_scene(100_000), 1080p)."""
-    width, height = r.width, r.height
-    check_any_hit(small_shadow_batch(r.device), "3k 96x48")
-
-    # Each pass's ray batch as the frame hands it to the intersector and
-    # its shadow batch as direct_lighting hands it to the occluder
-    # (Morton-sorted, 4 lights x the pass's rays), with the kernel launches
-    # each call made.
+def capturing(r):
+    """The Renderer's intersector and occluder factory, wrapped to keep
+    each batch a render hands them with the kernel launches the call made:
+    (intersect_fn, occluder_factory, rays, shadows), rays a list of (o, d,
+    tile_r, launches), shadows of (o, d, t_max, launches)."""
     rays, shadows = [], []
 
-    def capturing_isect(o, d, geo, tile_r=None):
+    def isect(o, d, geo, tile_r=None):
         before = dict(ci.LAUNCHES)
         hit = r.intersect_fn(o, d, geo, tile_r=tile_r)
         rays.append((o.clone(), d.clone(), tile_r or TILE_R, launched(before)))
         return hit
 
-    def capturing_occ(geo):
+    def factory(geo):
         occluded = r.occluder_factory(geo)
 
         def occ(o, d, t_max):
@@ -637,48 +767,85 @@ def whitted_path(r, card):
             return blocked
         return occ
 
+    return isect, factory, rays, shadows
+
+
+class Held:
+    """The batch records and largest errors of the three frame kernels,
+    gathered batch by batch."""
+
+    def __init__(self):
+        self.bin, self.closest, self.any = [], [], []
+        self.bin_err = self.closest_err = self.any_err = 0.0
+
+    def rays(self, label, batch, r, card, **plain_timing):
+        """The binning kernel and closest_hit against their plain versions
+        at one ray batch of ``capturing``, timed beside their bounds."""
+        o, d, tile_r, launches = batch
+        po, pd, _ = ci.pad_and_seed(o, d, r.bvh.clusters, tile_r)
+        rec, _, err = bin_batch(label, ci.tile_params(po, pd, tile_r),
+                                ci.cluster_rows(r.bvh.clusters), None,
+                                launches["bin_clusters"], card)
+        del po, pd
+        self.bin.append(rec)
+        self.bin_err = max(self.bin_err, err)
+        rec, err = closest_batch(closest_args(o, d, r.bvh, tile_r), label,
+                                 launches["closest_hit"], card, **plain_timing)
+        self.closest.append(rec)
+        self.closest_err = max(self.closest_err, err)
+
+    def shadows(self, label, batch, r, card, must_block=True, **plain_timing):
+        """The binning kernel and any_hit against their plain versions at
+        one shadow batch of ``capturing``, timed beside their bounds."""
+        o, d, t_max, launches = batch
+        po, pd, ptm, t_cap = ci.pad_and_cap(o, d, t_max, TILE_R)
+        rec, _, err = bin_batch(label, ci.tile_params(po, pd, TILE_R, t_cap=t_cap,
+                                                      live=ptm > T_MIN),
+                                ci.cluster_rows(r.bvh.clusters), None,
+                                launches["bin_clusters"], card)
+        del po, pd, ptm, t_cap
+        self.bin.append(rec)
+        self.bin_err = max(self.bin_err, err)
+        args = any_hit_args(o, d, t_max, r.bvh)
+        err, walk_bound = check_any_hit(args, label, must_block=must_block)
+        self.any.append(batch_record(label, ci.any_hit, ci.any_hit_plain, args,
+                                     walk_bound, launches["any_hit"], card,
+                                     **plain_timing))
+        self.any_err = max(self.any_err, err)
+
+    def into(self, records):
+        """Append what was gathered to the kernels' records."""
+        for name, batches, err in (
+                ("bin_clusters", self.bin, self.bin_err),
+                ("closest_hit", self.closest, self.closest_err),
+                ("any_hit", self.any, self.any_err)):
+            records[name]["batches"] += batches
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+
+
+def whitted_path(r, card):
+    """Phase 6 on the debug path's Renderer (bench_scene(100_000), 1080p).
+    Returns the batches held and the frame's launches."""
+    width, height = r.width, r.height
+    check_any_hit(small_shadow_batch(r.device), "3k 96x48")
+
+    # Each pass's ray batch as the frame hands it to the intersector and
+    # its shadow batch as direct_lighting hands it to the occluder
+    # (Morton-sorted, 4 lights x the pass's rays).
+    isect, occf, rays, shadows = capturing(r)
     pos, rot = r.camera.snapshot()
     render_whitted(r.dscene, pos, rot, width, height, max_depth=WHITTED_DEPTH,
-                   intersect_fn=capturing_isect, occluder_factory=capturing_occ)
+                   intersect_fn=isect, occluder_factory=occf)
     require(len(rays) >= 2 and len(shadows) >= 2,
             f"the Whitted frame made {len(rays)} intersector and "
             f"{len(shadows)} occluder calls, expected a bounce pass")
     require(shadows[0][0].shape == (r.dscene.lights.n_lights * width * height, 3),
             f"primary shadow batch shape {tuple(shadows[0][0].shape)}")
-    cb = ci.cluster_rows(r.bvh.clusters)
-    o, d, tile_r, launches = rays[1]
-    o, d, _ = ci.pad_and_seed(o, d, r.bvh.clusters, tile_r)
-    rec, _, bin_err = bin_batch("100k 1080p Whitted bounce",
-                                ci.tile_params(o, d, tile_r), cb, None,
-                                launches["bin_clusters"], card)
-    bin_batches = [rec]
-    any_batches, err = [], 0.0
-    for (o, d, t_max, launches), label in zip(
-            shadows[:2], ("100k 1080p primary shadow", "100k 1080p bounce shadow")):
-        po, pd, ptm, t_cap = ci.pad_and_cap(o, d, t_max, TILE_R)
-        rec, _, e = bin_batch(label, ci.tile_params(po, pd, TILE_R, t_cap=t_cap,
-                                                    live=ptm > T_MIN),
-                              cb, None, launches["bin_clusters"], card)
-        bin_batches.append(rec)
-        bin_err = max(bin_err, e)
-        del po, pd, ptm, t_cap
-        args = any_hit_args(o, d, t_max, r.bvh)
-        flag_err, walk_bound = check_any_hit(args, label,
-                                             must_block=not any_batches)
-        err = max(err, flag_err)
-        any_batches.append(batch_record(label, ci.any_hit, ci.any_hit_plain,
-                                        args, walk_bound, launches["any_hit"],
-                                        card))
-        del args
-    primary = any_batches[0]
-    record = dict(max_abs_err=err, ms=primary["ms"],
-                  plain_ms=primary["plain_ms"], bound_ms=primary["bound_ms"],
-                  bound_by=primary["bound_by"], library_ms=None,
-                  batches=any_batches)
-    o, d, tile_r, launches = rays[1]
-    bounce, bounce_err = closest_batch(closest_args(o, d, r.bvh, tile_r),
-                                       "100k 1080p Whitted bounce",
-                                       launches["closest_hit"], card)
+    held = Held()
+    held.shadows("100k 1080p primary shadow", shadows[0], r, card)
+    held.shadows("100k 1080p bounce shadow", shadows[1], r, card,
+                 must_block=False)
+    held.rays("100k 1080p Whitted bounce", rays[1], r, card)
     del rays, shadows
 
     ci.reset_launch_counts()
@@ -717,7 +884,7 @@ def whitted_path(r, card):
     print(f"whitted depth-{WHITTED_DEPTH} frame at {width}x{height}, "
           f"bench_scene(100_000): {frame_ms:.4f} ms median of {WHITTED_REPS} "
           f"[{card}]")
-    return record, (bounce, bounce_err), (bin_batches, bin_err), launches
+    return held, launches
 
 
 def pass_kernel_ms(fn) -> list:
@@ -738,7 +905,8 @@ def pass_kernel_ms(fn) -> list:
 
 
 def pt_path(r, card):
-    """Phase 9 on the debug path's Renderer (bench_scene(100_000), 1080p)."""
+    """Phase 9 on the debug path's Renderer (bench_scene(100_000), 1080p).
+    Returns the batches held and the entry point's launches."""
     width, height, device = r.width, r.height, r.device
     pos, rot = r.camera.snapshot()
     cb = ci.cluster_rows(r.bvh.clusters)
@@ -812,31 +980,12 @@ def pt_path(r, card):
 
     # The kernels at the first bounce pass's batches, against their plain
     # versions (one timed plain call each: the walks are long here).
-    label = "100k 1080p PT bounce"
-    o, d, tile_r, launches = kept["rays"]
-    po, pd, _ = ci.pad_and_seed(o, d, r.bvh.clusters, tile_r)
-    rec, _, bin_err = bin_batch(label, ci.tile_params(po, pd, tile_r), cb, None,
-                                launches["bin_clusters"], card)
-    bin_batches = [rec]
-    del po, pd
-    closest, closest_err = closest_batch(
-        closest_args(o, d, r.bvh, tile_r), label, launches["closest_hit"], card,
-        plain_reps=1, plain_warmup=0)
-    label = "100k 1080p PT bounce shadow"
-    o, d, t_max, launches = kept["shadow"]
-    po, pd, ptm, t_cap = ci.pad_and_cap(o, d, t_max, TILE_R)
-    rec, _, e = bin_batch(label, ci.tile_params(po, pd, TILE_R, t_cap=t_cap,
-                                                live=ptm > T_MIN),
-                          cb, None, launches["bin_clusters"], card)
-    bin_batches.append(rec)
-    bin_err = max(bin_err, e)
-    del po, pd, ptm, t_cap
-    args = any_hit_args(o, d, t_max, r.bvh)
-    any_err, walk_bound = check_any_hit(args, label)
-    any_rec = batch_record(label, ci.any_hit, ci.any_hit_plain, args,
-                           walk_bound, launches["any_hit"], card,
-                           plain_reps=1, plain_warmup=0)
-    del args, kept, o, d, t_max
+    held = Held()
+    held.rays("100k 1080p PT bounce", kept["rays"], r, card,
+              plain_reps=1, plain_warmup=0)
+    held.shadows("100k 1080p PT bounce shadow", kept["shadow"], r, card,
+                 plain_reps=1, plain_warmup=0)
+    del kept
     torch.cuda.empty_cache()
 
     # The port's own entry point, with a checkpoint.
@@ -906,8 +1055,7 @@ def pt_path(r, card):
     print(f"PT sample at {width}x{height}, bench_scene(100_000), depth "
           f"{PT_DEPTH}: {sample_ms:.4f} ms median of {PT_REPS}; alive per "
           f"pass {[p['alive'] for p in passes]} [{card}]")
-    return ((bin_batches, bin_err), (closest, closest_err), (any_rec, any_err),
-            launches)
+    return held, launches
 
 
 def huge_path(device, card):
@@ -999,6 +1147,415 @@ def overflow_check(device, card):
     print(f"bin_lists (super) with a {n_valid}-cluster list: kernel {ms:.4f} ms "
           f"(device time, profiler) [{card}]")
 
+def _multi_rank(rank, world, n_tris, width, height):
+    """One process of phase 10: the scene and its BVH built on the card,
+    then the two collective entry points with this process's launch
+    counters around each."""
+    import torch.distributed as dist
+
+    device = local_device()
+    torch.cuda.set_device(device)
+    r = Renderer(testscenes.bench_scene(n_tris, width, height), width, height,
+                 device=device)
+    mesh = make_mesh(*MULTI_GRID)
+    pos, rot = r.camera.snapshot()
+    fns = dict(intersect_fn=r.intersect_fn, occluder_factory=r.occluder_factory)
+
+    def timed(fn):
+        ci.reset_launch_counts()
+        torch.cuda.synchronize()
+        dist.barrier()  # the ranks start together: none times its wait
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(ci.LAUNCHES)
+
+    def whitted():
+        return render_whitted_multichip(r.dscene, pos, rot, width, height, mesh,
+                                        max_depth=WHITTED_DEPTH, spp=MULTI_SPP,
+                                        **fns)
+
+    _, first_s, _ = timed(whitted)  # loads the library, warms the allocator
+    (img, stats), whitted_s, whitted_launches = timed(whitted)
+    acc, pt_s, pt_launches = timed(lambda: pathtrace_multichip(
+        r.dscene, pos, rot, 0, width, height, mesh, spp=MULTI_SPP,
+        max_depth=PT_DEPTH, **fns))
+    pt_img = untile_multichip(acc / MULTI_SPP, width, height, MULTI_GRID[0])
+    keep = rank == 0  # every rank holds the same frame: one copy crosses
+    return dict(coords=mesh.coords, device=str(img.device),
+                backend=dist.get_backend(), first_s=first_s,
+                whitted_s=whitted_s, pt_s=pt_s,
+                whitted_launches=whitted_launches, pt_launches=pt_launches,
+                stats=stats, img_sum=float(img.double().sum()),
+                pt_sum=float(pt_img.double().sum()),
+                img=img.cpu() if keep else None,
+                pt_img=pt_img.cpu() if keep else None)
+
+
+def stripe_batches(r, card):
+    """The kernels of the multi-device path against their plain versions at
+    the shapes that path gives them, in this one process: the last rank's
+    shard of the Whitted frame and of the path-traced accumulation are
+    rendered through ``capturing``, and the binning kernel, closest_hit and
+    any_hit are held and timed at the stripe's primary batch (its own tile
+    schedule, under a sample offset) and primary shadow batch and at the
+    path tracer's first bounce and its shadow batch."""
+    width, height = r.width, r.height
+    pos, rot = r.camera.snapshot()
+    n_tiles, n_samples = MULTI_GRID
+    t, s = n_tiles - 1, n_samples - 1
+    rows = -(-height // n_tiles)
+    _, tile_r = pick_schedule(rows, width)
+    isect, occf, rays, shadows = capturing(r)
+    whitted_shard(r.dscene, pos, rot, width, height, n_tiles, n_samples, t, s,
+                  max_depth=WHITTED_DEPTH, spp=MULTI_SPP, intersect_fn=isect,
+                  occluder_factory=occf)
+    require(rays[0][2] == tile_r and rays[0][0].shape[0] == rows * width,
+            f"the stripe's primary batch: {rays[0][0].shape[0]} rays in tiles "
+            f"of {rays[0][2]}, expected {rows * width} in tiles of {tile_r}")
+    held = Held()
+    label = f"100k {rows}-row stripe"
+    held.rays(f"{label} primary", rays[0], r, card)
+    held.shadows(f"{label} primary shadow", shadows[0], r, card)
+    del rays[:], shadows[:]
+    pathtrace_shard(r.dscene, pos, rot, 0, width, height, n_tiles, n_samples,
+                    t, s, spp=n_samples, max_depth=PT_DEPTH, intersect_fn=isect,
+                    occluder_factory=occf)
+    require(len(rays) == PT_DEPTH and len(shadows) == PT_DEPTH,
+            f"the stripe's PT sample made {len(rays)} intersector calls")
+    held.rays(f"{label} PT bounce", rays[1], r, card,
+              plain_reps=1, plain_warmup=0)
+    held.shadows(f"{label} PT bounce shadow", shadows[1], r, card,
+                 plain_reps=1, plain_warmup=0)
+    del rays[:], shadows[:]
+    torch.cuda.empty_cache()
+    return held
+
+
+def multi_path(r, card):
+    """Phase 10 beside the debug path's Renderer (bench_scene(100_000),
+    1080p), which renders the single-process references.  Returns the
+    batches ``stripe_batches`` held."""
+    width, height = r.width, r.height
+    pos, rot = r.camera.snapshot()
+    fns = dict(intersect_fn=r.intersect_fn, occluder_factory=r.occluder_factory)
+    held = stripe_batches(r, card)
+
+    def single():
+        return render_whitted(r.dscene, pos, rot, width, height,
+                              max_depth=WHITTED_DEPTH, spp=MULTI_SPP, **fns)
+
+    ref, ref_stats = single()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single()
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    pt = PathTracer(r.dscene, width, height, max_depth=PT_DEPTH, seed=3, **fns)
+    pt.step(pos, rot, n=MULTI_SPP)
+    pt_ref = pt.image().cpu()
+    ref, ref_alive = ref.cpu(), int(ref_stats["alive"].sum())
+    del pt
+    torch.cuda.empty_cache()
+
+    world = MULTI_GRID[0] * MULTI_GRID[1]
+    t0 = time.perf_counter()
+    out = launch(_multi_rank, world, (BIG_SCENE[0], width, height),
+                 timeout=MULTI_TIMEOUT)
+    print(f"multi-device: {world} processes ({MULTI_GRID[0]} tiles x "
+          f"{MULTI_GRID[1]} samples) started, rendered and joined in "
+          f"{time.perf_counter() - t0:.1f} s")
+    kernels = ("bin_clusters", "closest_hit", "any_hit")
+    for rank, o in enumerate(out):
+        print(f"rank {rank} at {o['coords']} on {o['device']} over "
+              f"{o['backend']}: render_whitted_multichip {o['whitted_s']:.4f} s "
+              f"(first call {o['first_s']:.4f} s), launches "
+              f"{o['whitted_launches']}; pathtrace_multichip {o['pt_s']:.4f} s, "
+              f"launches {o['pt_launches']} [{card}]")
+        require(o["device"].startswith("cuda"),
+                f"rank {rank} rendered on {o['device']}")
+        for name in kernels:
+            require(o["whitted_launches"][name] > 0 and o["pt_launches"][name] > 0,
+                    f"rank {rank} never launched {name}")
+        for key in ("img_sum", "pt_sum"):  # every rank holds the one frame
+            require(abs(o[key] - out[0][key]) <= 1e-6 * abs(out[0][key]),
+                    f"rank {rank}'s {key} {o[key]} against rank 0's {out[0][key]}")
+    require([o["coords"] for o in out]
+            == [divmod(k, MULTI_GRID[1]) for k in range(world)], "mesh coords")
+    print(f"single process, render_whitted spp {MULTI_SPP} depth "
+          f"{WHITTED_DEPTH}: {single_s:.4f} s [{card}]")
+
+    img, stats = out[0]["img"], out[0]["stats"]
+    require(tuple(img.shape) == (height, width, 3), "multi-device frame shape")
+    require(bool(torch.isfinite(img).all()), "multi-device frame not finite")
+    agree = frames_agree(img, ref)
+    alive = int(stats["alive"].sum())
+    print(f"multi-device Whitted: {agree:.6f} of pixels within {PIXEL_LEVELS} "
+          f"levels of the single-process frame, largest difference "
+          f"{float((img - ref).abs().max()):.3e}; alive rays summed over "
+          f"ranks {alive}, single process {ref_alive}; dropped "
+          f"{int(stats['dropped'].sum())}")
+    require(agree >= PIXEL_AGREE, f"multi-device pixel agreement {agree}")
+    require(float((img - ref).abs().max()) <= MULTI_ATOL,
+            "the multi-device frame is not the single-process frame")
+    require(abs(alive - ref_alive) <= ALIVE_SHARE * width * height,
+            f"multi-device alive {alive} against {ref_alive}")
+
+    pt_img = out[0]["pt_img"]
+    require(tuple(pt_img.shape) == (height, width, 3), "multi-device PT shape")
+    require(bool(torch.isfinite(pt_img).all()), "multi-device PT not finite")
+    require(bool((pt_img >= 0).all()), "multi-device PT negative radiance")
+    bg = r.dscene.background_color.cpu()
+    require(int((pt_img != bg).any(dim=-1).sum()) > 0,
+            "multi-device PT image is all background")
+
+    # The same accumulation from one process: every shard's sum, the samples
+    # axis added up and rescaled, the stripes concatenated.
+    n_tiles, n_samples = MULTI_GRID
+    scale = MULTI_SPP / (-(-MULTI_SPP // n_samples) * n_samples)
+    stripes = [sum(pathtrace_shard(r.dscene, pos, rot, 0, width, height,
+                                   n_tiles, n_samples, t, s, spp=MULTI_SPP,
+                                   max_depth=PT_DEPTH, **fns)
+                   for s in range(n_samples)) * scale for t in range(n_tiles)]
+    whole = untile_multichip(torch.cat(stripes) / MULTI_SPP, width, height,
+                             n_tiles).cpu()
+    del stripes
+    off = (whole - pt_img).abs()
+    shards_agree = bool((off <= PT_SHARD_TOL * (1 + whole.abs())).all())
+    print(f"multi-device PT against the sum of pathtrace_shard over every "
+          f"(t, s) in one process: largest difference {float(off.max()):.3e} "
+          f"(largest value {float(whole.max()):.3e}; gate {PT_SHARD_TOL:g} "
+          f"absolute + relative)")
+    require(shards_agree, "pathtrace_multichip is not the sum of its shards")
+
+    def blocks(im):
+        return im.reshape(4, height // 4, 4, width // 4, 3).mean(dim=(1, 3))
+
+    a, b = blocks(pt_img), blocks(pt_ref)
+    rel = float(((a - b).abs().mean(dim=-1) / (0.5 + b.mean(dim=-1))).max())
+    gap = abs(float(pt_img.mean()) - float(pt_ref.mean()))
+    print(f"multi-device PT, {MULTI_SPP} samples depth {PT_DEPTH}, against a "
+          f"single-process {MULTI_SPP}-sample image: largest block-mean "
+          f"difference {rel:.6f} relative (gate {PT_BLOCK_REL}), image means "
+          f"{gap:.6f} apart (gate {PT_MEAN_GAP})")
+    require(rel < PT_BLOCK_REL and gap < PT_MEAN_GAP,
+            f"multi-device PT block means {rel}, means {gap}")
+    return held
+
+
+def checks_path(r, card):
+    """Phase 11 on the debug path's Renderer."""
+    unarmed, _ = r.render_whitted_frame(max_depth=WHITTED_DEPTH)
+    unarmed_ms = time_ms(lambda: r.render_whitted_frame(max_depth=WHITTED_DEPTH),
+                         WHITTED_REPS)
+    require(not checks.enabled(), "DXRT_CHECK is set in the environment")
+    os.environ["DXRT_CHECK"] = "1"
+    try:
+        require(checks.enabled(), "DXRT_CHECK=1 does not arm the checks")
+        armed, _ = r.render_whitted_frame(max_depth=WHITTED_DEPTH)
+        armed_ms = time_ms(
+            lambda: r.render_whitted_frame(max_depth=WHITTED_DEPTH), WHITTED_REPS)
+        diff = float((armed - unarmed).abs().max())
+        print(f"checks: the armed frame is clean; largest difference to the "
+              f"unarmed frame {diff:.3e}")
+        require(diff <= 1e-6, f"armed frame differs by {diff}")
+        clean = r.dscene
+        intensity = clean.lights.intensity.clone()
+        intensity[0] = float("nan")
+        r.dscene = dataclasses.replace(clean, lights=dataclasses.replace(
+            clean.lights, intensity=intensity))
+        try:
+            r.render_whitted_frame(max_depth=WHITTED_DEPTH)
+        except checks.CheckError as e:
+            print(f"checks: a NaN light intensity raises CheckError: {e}")
+            require("non-finite" in str(e), f"unexpected guard: {e}")
+        else:
+            raise AssertionError("a NaN light intensity passed the armed frame")
+        finally:
+            r.dscene = clean
+    finally:
+        del os.environ["DXRT_CHECK"]
+    print(f"whitted depth-{WHITTED_DEPTH} frame, DXRT_CHECK=1: {armed_ms:.4f} ms "
+          f"armed against {unarmed_ms:.4f} ms unarmed (medians of "
+          f"{WHITTED_REPS}) [{card}]")
+
+
+def scenes_equal(a, b) -> bool:
+    """Two host scenes, field for field (normals within 1e-5: the two
+    parsers sum face normals in their own order)."""
+    def eq(x, y):
+        return np.array_equal(np.asarray(x), np.asarray(y))
+
+    same = (a.settings.image_width == b.settings.image_width
+            and a.settings.image_height == b.settings.image_height
+            and eq(a.settings.background_color, b.settings.background_color)
+            and eq(a.camera.position, b.camera.position)
+            and eq(a.camera.rotation, b.camera.rotation)
+            and len(a.lights) == len(b.lights)
+            and len(a.materials) == len(b.materials)
+            and len(a.textures) == len(b.textures)
+            and len(a.meshes) == len(b.meshes))
+    for la, lb in zip(a.lights, b.lights):
+        same = same and eq(la.position, lb.position) and la.intensity == lb.intensity
+    for ma, mb in zip(a.materials, b.materials):
+        same = same and (ma.type == mb.type and eq(ma.albedo, mb.albedo)
+                         and ma.smooth_shading == mb.smooth_shading
+                         and ma.texture_name == mb.texture_name
+                         and np.isclose(ma.ior, mb.ior, rtol=1e-6)
+                         and np.isclose(ma.specular, mb.specular, rtol=1e-6)
+                         and np.isclose(ma.shininess, mb.shininess, rtol=1e-6))
+    for ta, tb in zip(a.textures, b.textures):
+        same = same and ((ta.name, ta.type, ta.file_path)
+                         == (tb.name, tb.type, tb.file_path)
+                         and eq(ta.color_a, tb.color_a)
+                         and eq(ta.color_b, tb.color_b)
+                         and np.isclose(ta.scalar, tb.scalar))
+    for sa, sb in zip(a.meshes, b.meshes):
+        same = same and (sa.material_index == sb.material_index
+                         and eq(sa.vertices, sb.vertices)
+                         and eq(sa.indices, sb.indices) and eq(sa.uvs, sb.uvs)
+                         and np.allclose(sa.normals, sb.normals, atol=1e-5))
+    return bool(same)
+
+
+def native_path(card):
+    """Phase 12: the native parser against the Python one at 100k
+    triangles.  A g++ failure raises."""
+    from directx_raytracer_tpu_torch.native import build as native_build
+
+    scene = testscenes.bench_scene(*BIG_SCENE)
+    path = os.path.join(tempfile.gettempdir(), "chip_smoke_bench.crtscene")
+    t0 = time.perf_counter()
+    crtscene.dump(scene, path)
+    dump_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_build.get_library()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native = crtscene.load(path, use_native=True)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = crtscene.load(path, use_native=False)
+    python_s = time.perf_counter() - t0
+    same = scenes_equal(native, python) and scenes_equal(python, scene)
+    print(f"native parser: {scene.num_triangles} triangles in "
+          f"{os.path.getsize(path) / 1e6:.1f} MB (written in {dump_s:.2f} s); "
+          f"g++ build {build_s:.2f} s; native parse {native_s:.4f} s, Python "
+          f"parse {python_s:.4f} s (host times, one run each; card: {card}); "
+          f"equal field for field and to the scene written: {same}")
+    require(native.num_triangles == scene.num_triangles > 0, "native triangle count")
+    require(same, "the native and the Python parser disagree")
+    os.remove(path)
+
+
+def hits_agree(label, got, ref):
+    """One intersector against brute force at the intersection gates."""
+    hit_agree = (got.mask == ref.mask).float().mean().item()
+    both = got.mask & ref.mask
+    winner = (got.tri[both] == ref.tri[both]).float().mean().item()
+    rel = (got.t[both] - ref.t[both]).abs() / ref.t[both].abs()
+    share = (rel <= ORACLE_T_RTOL).float().mean().item()
+    tight = (rel <= T_RTOL).float().mean().item()
+    print(f"[oracles] {label}: hit/miss agreement {hit_agree:.6f}, winner "
+          f"agreement {winner:.6f}, t within {ORACLE_T_RTOL:g} rel on "
+          f"{share:.6f} (within {T_RTOL:g} on {tight:.6f}) of {int(both.sum())} "
+          f"common hits")
+    require(hit_agree >= HIT_AGREE, f"{label} hit/miss agreement {hit_agree}")
+    require(winner >= WINNER_AGREE, f"{label} winner agreement {winner}")
+    require(share >= T_RTOL_SHARE, f"{label} t agreement {share}")
+
+
+def oracles_path(r, card):
+    """Phase 13: the oracles on the card; ``r`` is the 100k Renderer."""
+    device = r.device
+    x = kernel_inputs(*SMALL_SCENE, device)
+    o, d, bvh, tile_r = x["o"], x["d"], x["bvh"], x["tile_r"]
+    geo = build_device_scene(testscenes.bench_scene(*SMALL_SCENE), device).geometry
+    ref = intersect_bruteforce(o, d, geo.woop)
+    require(int(ref.mask.sum()) > 0, "the small scene's rays hit nothing")
+    lbvh = build_lbvh(geo)
+    lists = ci.bin_lists(x["tp"], x["cb"], plain=True)
+    bt, bs = ci.closest_hit_plain(o, d, x["t_init"], x["wrows"], *lists[:3],
+                                  tile_r)
+    plain = dataclasses.replace(
+        ref, t=torch.where(bs >= 0, bt, float("inf")), tri=bs)
+    for label, got in (
+            ("traverse_closest over build_lbvh", traverse_closest(o, d, lbvh)),
+            ("intersect_clustered", intersect_clustered(o, d, bvh.clusters)),
+            ("intersect_fused", intersect_fused(o, d, bvh.clusters, x["wrows"],
+                                                tile_r)),
+            ("closest_hit_plain", plain),
+            ("intersect_bruteforce", intersect_bruteforce(o, d, geo.woop))):
+        hits_agree(label, got, ref)
+
+    args = small_shadow_batch(device)
+    so, sd, st = args[:3]
+    blocked = ci.any_hit(*args)
+    for label, got in (
+            ("traverse_occluded", traverse_occluded(so, sd, lbvh, st)),
+            ("occluded_clustered", occluded_clustered(so, sd, bvh.clusters, st))):
+        agree = (got == blocked).float().mean().item()
+        print(f"[oracles] {label} against any_hit on the 3k shadow batch: "
+              f"blocked agreement {agree:.6f} ({int(got.sum())} and "
+              f"{int(blocked.sum())} blocked)")
+        require(agree >= BLOCKED_AGREE, f"{label} blocked agreement {agree}")
+
+    # The binning oracle at the 100k primary batch: the same visit sets.
+    width, height = r.width, r.height
+    tile, tile_r = pick_schedule(height, width)
+    pos, rot = r.camera.snapshot()
+    o, d = generate_rays_tiled(pos, rot, width, height, *tile, device=device)
+    tiles = o.shape[0] // tile_r
+    cs = r.bvh.clusters
+    c = cs.aabb_min.shape[0]
+    ids, _, counts = bin_clusters(o.reshape(tiles, tile_r, 3),
+                                  d.reshape(tiles, tile_r, 3), cs)
+    visit, _, k_counts, _ = ci.bin_lists(ci.tile_params(o, d, tile_r),
+                                         ci.cluster_rows(cs))
+    col = torch.arange(c, device=device)
+
+    def member(lists, n):
+        """(T, C) bool: cluster listed by tile."""
+        out = torch.zeros((tiles, c), dtype=torch.bool, device=device)
+        listed = col < n[:, None]
+        rows = torch.arange(tiles, device=device)[:, None].expand(tiles, c)
+        out[rows[listed], lists[:, :c][listed].long()] = True
+        return out
+
+    same = (torch.equal(counts, k_counts)
+            and torch.equal(member(ids, counts), member(visit, k_counts)))
+    print(f"[oracles] binning_oracle.bin_clusters at the 100k 1080p primary "
+          f"batch: {tiles} tiles x {c} clusters, {int(counts.sum())} listed; "
+          f"the same visit sets as bin_lists: {same}")
+    require(same and int(counts.sum()) > 0,
+            "the binning oracle and bin_lists list different sets")
+
+    geo = r.dscene.geometry
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big = build_lbvh(geo)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # A block from the middle rows of the frame (the first rows see sky).
+    start = (o.shape[0] - WALK_BLOCK) // 2 // tile_r * tile_r
+    ob = o[start:start + WALK_BLOCK].contiguous()
+    db = d[start:start + WALK_BLOCK].contiguous()
+    t0 = time.perf_counter()
+    walked = traverse_closest(ob, db, big, block=WALK_BLOCK)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    fused = r.intersect_fn(ob, db, geo)
+    agree = (walked.mask == fused.mask).float().mean().item()
+    print(f"[oracles] build_lbvh over {big.n_tris} triangle slots: "
+          f"{build_s * 1e3:.1f} ms; traverse_closest on a {WALK_BLOCK}-ray "
+          f"block from the middle of the 1080p primary batch: "
+          f"{walk_s * 1e3:.1f} ms "
+          f"({int(walked.mask.sum())} hits, hit/miss agreement with the "
+          f"kernels {agree:.6f}); host clock, one run each: an oracle's times, "
+          f"not a result [{card}]")
+    require(int(walked.mask.sum()) > 0, "the timed walk's block hits nothing")
+    require(agree >= HIT_AGREE, f"the 100k walk's hit/miss agreement {agree}")
+
 
 def precision_path(device, card):
     """Phase 8: the precision micro at the tool's own shapes."""
@@ -1071,7 +1628,21 @@ def precision_path(device, card):
     return records
 
 
-def main() -> int:
+def finish(card, kernels=None) -> int:
+    """The last lines: the kernels line (the full run's), the card, ok."""
+    if kernels is not None:
+        print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=()) -> int:
+    if list(argv) not in ([], ["multi"]):
+        print("usage: chip_smoke.py [multi]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the GPU",
               file=sys.stderr)
@@ -1089,6 +1660,12 @@ def main() -> int:
     if log.exists():
         print(log.read_text().strip())
 
+    if argv:  # phase 10 alone, for a host with a card a process
+        n_tris, width, height = BIG_SCENE
+        multi_path(Renderer(testscenes.bench_scene(n_tris, width, height),
+                            width, height, device=device), card)
+        return finish(card)
+
     records = kernels_vs_plain(device, card)
     r, launches = main_path(device)
     closest, binner = records["closest_hit"], records["bin_clusters"]
@@ -1101,26 +1678,26 @@ def main() -> int:
           f"{frame_ms:.4f} ms median of {FRAME_REPS}, "
           f"{n_rays / frame_ms / 1e3:.2f} Mrays/s [{card}]")
 
-    (records["any_hit"], (bounce, bounce_err), (bin_batches, bin_err),
-     whitted_launches) = whitted_path(r, card)
-    binner["batches"] += bin_batches
-    binner["max_abs_err"] = max(binner["max_abs_err"], bin_err)
-    ((bin_batches, bin_err), (pt_bounce, pt_bounce_err), (pt_shadow, pt_shadow_err),
-     _) = pt_path(r, card)
-    binner["batches"] += bin_batches
-    binner["max_abs_err"] = max(binner["max_abs_err"], bin_err)
-    records["any_hit"]["batches"].append(pt_shadow)
-    records["any_hit"]["max_abs_err"] = max(records["any_hit"]["max_abs_err"],
-                                            pt_shadow_err)
+    held, whitted_launches = whitted_path(r, card)
+    # any_hit's line carries the primary shadow batch's numbers on top.
+    records["any_hit"] = dict(
+        max_abs_err=0.0, library_ms=None, batches=[],
+        **{key: held.any[0][key] for key in
+           ("ms", "plain_ms", "bound_ms", "bound_by")})
+    held.into(records)
+    pt_path(r, card)[0].into(records)
+    multi_path(r, card).into(records)
+    checks_path(r, card)
+    oracles_path(r, card)
     del r
     torch.cuda.empty_cache()
     records["bin_clusters_super"], (huge, huge_err), huge_launches = huge_path(
         device, card)
-    closest["batches"] += [bounce, pt_bounce, huge]
-    closest["max_abs_err"] = max(closest["max_abs_err"], bounce_err,
-                                 pt_bounce_err, huge_err)
+    closest["batches"].append(huge)
+    closest["max_abs_err"] = max(closest["max_abs_err"], huge_err)
     torch.cuda.empty_cache()
     variants = precision_path(device, card)
+    native_path(card)
 
     # Each kernel's launches are read from the path it serves: the debug
     # path (bin_clusters, closest_hit), the Whitted path (any_hit) and the
@@ -1153,16 +1730,12 @@ def main() -> int:
                             source=f"directx_raytracer_tpu_torch/{src}",
                             replaces=replaces, launches=launches[name],
                             **records[name]))
-    print(json.dumps({"kernels": kernels}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    print(windows_line())
+    return finish(card, kernels)
 
 
 if __name__ == "__main__":
     t0 = time.perf_counter()
-    rc = main()
+    rc = main(sys.argv[1:])
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     sys.exit(rc)

@@ -1,9 +1,10 @@
 """Loader for the ``.crtscene`` JSON scene format.
 
-Counterpart of ``directx_raytracer_tpu/io/crtscene.py``: its pure-Python
-``loads``/``load`` path, copied unchanged.  The native C++ parser there
-(``directx_raytracer_tpu/native``) is not ported yet, so ``load`` always
-parses in Python.
+Counterpart of ``directx_raytracer_tpu/io/crtscene.py`` (``loads``,
+``load``, ``dumps``, ``dump``): the pure-Python parser and the writer are
+copied unchanged; ``load`` takes the native C++ parser (``native/``) when
+it can, as the JAX loader does, but never hides why it could not (see
+``load``).
 
 Accepts the exact schema the reference parses (CRTSceneParser.cpp:407-427):
 
@@ -38,6 +39,8 @@ honors the scene file's width/height.
 from __future__ import annotations
 
 import json
+import logging
+import os
 
 import numpy as np
 
@@ -46,6 +49,8 @@ from ..models.material import Material, MaterialType
 from ..models.mesh import Mesh
 from ..models.scene import Scene
 from ..models.texture import Texture, TextureType
+
+log = logging.getLogger("directx_raytracer_tpu_torch")
 
 _MATERIAL_TYPES = {
     "diffuse": MaterialType.DIFFUSE,
@@ -179,7 +184,118 @@ def loads(text: str) -> Scene:
     return scene
 
 
-def load(path: str) -> Scene:
-    """Parse a .crtscene file (pure Python)."""
+def load(path: str, use_native: bool | None = None) -> Scene:
+    """Parse a .crtscene file.
+
+    ``use_native=None`` (default) takes the native C++ parser unless
+    ``DXRT_NATIVE_PARSER=0`` and falls back to the pure-Python one when the
+    native parser fails, with a warning that names the cause (a library
+    that did not build, or a parse error the Python parser will then
+    report itself).  ``use_native=True`` asked for explicitly raises
+    instead of falling back; ``False`` parses in Python.
+    """
+    explicit = use_native is True
+    if use_native is None:
+        use_native = os.environ.get("DXRT_NATIVE_PARSER", "1") != "0"
+    if use_native:
+        from ..native import crtscene_native
+
+        try:
+            return crtscene_native.load(path)
+        except Exception as e:
+            if explicit:
+                raise
+            log.warning("native .crtscene parser failed (%s: %s); parsing "
+                        "%s in Python", type(e).__name__, e, path)
     with open(path, "r") as f:
         return loads(f.read())
+
+
+def dumps(scene: Scene) -> str:
+    """Serialize a Scene back to the `.crtscene` JSON schema (the capability
+    behind the reference's never-connected File->Save menu item,
+    DXRTMainWindow.cpp:155-158).  round-trips through ``loads``."""
+    doc = {
+        "settings": {
+            "background_color": [float(x) for x in scene.settings.background_color],
+            "image_settings": {
+                "width": scene.settings.image_width,
+                "height": scene.settings.image_height,
+            },
+        },
+        "camera": {
+            "matrix": [float(x) for x in np.asarray(scene.camera.rotation).reshape(-1)],
+            "position": [float(x) for x in scene.camera.position],
+        },
+        "lights": [
+            {"intensity": float(l.intensity),
+             "position": [float(x) for x in l.position]}
+            for l in scene.lights
+        ],
+        "materials": [],
+        "objects": [],
+    }
+    type_names = {
+        MaterialType.DIFFUSE: "diffuse",
+        MaterialType.REFLECTIVE: "reflective",
+        MaterialType.REFRACTIVE: "refractive",
+        MaterialType.CONSTANT: "constant",
+    }
+    for m in scene.materials:
+        entry = {
+            "type": type_names.get(m.type, "diffuse"),
+            "smooth_shading": bool(m.smooth_shading),
+        }
+        if m.is_texture():
+            entry["albedo"] = m.texture_name
+        else:
+            entry["albedo"] = [float(x) for x in m.albedo]
+        if m.type == MaterialType.REFRACTIVE:
+            entry["ior"] = float(m.ior)
+        # Emit each key independently when it differs from its default —
+        # the parser reads them independently, so gating shininess on
+        # specular would lose a customized shininess on a save/load
+        # round-trip.
+        if m.specular:
+            entry["specular"] = float(m.specular)
+        if m.shininess != 32.0:
+            entry["shininess"] = float(m.shininess)
+        doc["materials"].append(entry)
+
+    if scene.textures:
+        doc["textures"] = []
+        for t in scene.textures:
+            e = {"name": t.name}
+            if t.type == TextureType.ALBEDO:
+                e["type"] = "albedo"
+                e["albedo"] = [float(x) for x in t.color_a]
+            elif t.type == TextureType.EDGES:
+                e["type"] = "edges"
+                e["edge_color"] = [float(x) for x in t.color_a]
+                e["inner_color"] = [float(x) for x in t.color_b]
+                e["edge_width"] = float(t.scalar)
+            elif t.type == TextureType.CHECKER:
+                e["type"] = "checker"
+                e["color_A"] = [float(x) for x in t.color_a]
+                e["color_B"] = [float(x) for x in t.color_b]
+                e["square_size"] = float(t.scalar)
+            else:
+                e["type"] = "bitmap"
+                e["file_path"] = t.file_path
+            doc["textures"].append(e)
+
+    for mesh in scene.meshes:
+        obj = {
+            "material_index": int(mesh.material_index),
+            "vertices": [float(x) for x in np.asarray(mesh.vertices).reshape(-1)],
+            "triangles": [int(i) for i in np.asarray(mesh.indices).reshape(-1)],
+        }
+        if len(mesh.uvs):
+            obj["uvs"] = [float(x) for x in np.asarray(mesh.uvs).reshape(-1)]
+        doc["objects"].append(obj)
+    return json.dumps(doc)
+
+
+def dump(scene: Scene, path: str) -> None:
+    with open(path, "w") as f:
+        f.write(dumps(scene))

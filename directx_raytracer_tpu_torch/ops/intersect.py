@@ -1,9 +1,10 @@
 """Batched ray-triangle intersection: the oracles every kernel is held to.
 
 Counterpart of ``directx_raytracer_tpu/ops/intersect.py`` (``Hit``,
-``intersect_block``, ``intersect_bruteforce``, ``hit_record``,
-``refine_hit``, ``occluded_bruteforce``, ``moller_trumbore``), as plain
-torch with the same float-op order.
+``woop_mats``, ``intersect_block``, ``_closest_in_block``,
+``intersect_bruteforce``, ``hit_record``, ``refine_hit``,
+``occluded_bruteforce``, ``moller_trumbore``), as plain torch with the same
+float-op order.
 
 Each triangle carries a precomputed Woop unit-triangle transform
 (models/scene.py), so testing R rays against T triangles is two dense f32
@@ -53,6 +54,18 @@ class Hit:
         return self.tri >= 0
 
 
+def woop_mats(woop: torch.Tensor):
+    """Split (T, 3, 4) Woop transforms into matmul operands.
+
+    Returns (w4, w3): w4 is (4, 3T) acting on homogeneous origins, w3 is
+    (3, 3T) acting on directions (a view of w4's first three rows).  Column
+    layout is triangle-major (tri t's rows occupy columns 3t..3t+2).
+    """
+    t = woop.shape[0]
+    w = woop.reshape(t * 3, 4).T  # (4, 3T)
+    return w, w[:3]
+
+
 def intersect_block(origins, dirs, woop, t_min=T_MIN, t_max=T_MAX):
     """Dense R x T intersection via the Woop matmul formulation.
 
@@ -65,16 +78,34 @@ def intersect_block(origins, dirs, woop, t_min=T_MIN, t_max=T_MAX):
     full_f32_matmuls()
     r = origins.shape[0]
     t = woop.shape[0]
-    w4 = woop.reshape(t * 3, 4).T  # (4, 3T), triangle-major columns
+    w4, w3 = woop_mats(woop)
     o4 = torch.cat([origins, origins.new_ones((r, 1))], dim=1)
     op = (o4 @ w4).reshape(r, t, 3)
-    dp = (dirs @ w4[:3]).reshape(r, t, 3)
+    dp = (dirs @ w3).reshape(r, t, 3)
 
     tt = -op[..., 2] / dp[..., 2]
     u = op[..., 0] + tt * dp[..., 0]
     v = op[..., 1] + tt * dp[..., 1]
     valid = (tt > t_min) & (tt < t_max) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
     return torch.where(valid, tt, INF), u, v, valid
+
+
+def _closest_in_block(origins, dirs, woop, tri_base, carry, t_min, t_max):
+    """Fold one triangle block into the running closest-hit carry
+    (best_t, best_tri, best_u, best_v); among equal t inside the block the
+    lowest triangle wins, and an earlier block keeps a tie."""
+    best_t, best_tri, best_u, best_v = carry
+    tt, u, v, _ = intersect_block(origins, dirs, woop, t_min, t_max)
+    blk_t, blk_idx = torch.min(tt, dim=1)
+    blk_u = u.gather(1, blk_idx[:, None])[:, 0]
+    blk_v = v.gather(1, blk_idx[:, None])[:, 0]
+    closer = blk_t < best_t
+    return (
+        torch.where(closer, blk_t, best_t),
+        torch.where(closer, (tri_base + blk_idx).to(torch.int32), best_tri),
+        torch.where(closer, blk_u, best_u),
+        torch.where(closer, blk_v, best_v),
+    )
 
 
 def _pad_woop(woop, tri_block: int):

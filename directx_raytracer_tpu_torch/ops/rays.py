@@ -1,7 +1,7 @@
 """Camera ray generation — batched counterpart of the DXR raygen shader.
 
 Counterpart of ``directx_raytracer_tpu/ops/rays.py`` (``T_MIN``/``T_MAX``,
-``pick_schedule``, ``pick_tile``, ``generate_rays_tiled``,
+``pick_schedule``, ``pick_tile``, ``generate_rays_tiled``, ``tile_perm``,
 ``generate_rays``, ``RGSS_OFFSETS``), with the same float-op order,
 row-band arguments (``row_start``, ``rows``) included.
 
@@ -118,6 +118,28 @@ def generate_rays_tiled(position, rotation, width: int, height: int,
     dirs = _world_dirs(x, y, rot)
     origins = pos.expand(n, 3).contiguous()
     return origins, dirs
+
+
+def tile_perm(rows: int, width: int, tile_h: int = 8, tile_w: int = 32):
+    """Permutation regrouping row-major pixels into (tile_h x tile_w) tiles.
+
+    Returns an (rows*width,) i32 numpy permutation p such that rays[p] is
+    tile-major (``generate_rays`` order -> ``generate_rays_tiled`` order),
+    or None if no reasonable tile size divides the image (callers then keep
+    row order).
+    """
+    import numpy as np
+
+    t = pick_tile(rows, width, tile_h, tile_w)
+    if t is None:
+        return None
+    th, tw = t
+    idx = np.arange(rows * width, dtype=np.int32).reshape(rows, width)
+    return (
+        idx.reshape(rows // th, th, width // tw, tw)
+        .transpose(0, 2, 1, 3)
+        .reshape(-1)
+    )
 
 
 # 4x rotated-grid supersampling offsets (BASELINE config 4); spp=1 uses the

@@ -4,6 +4,7 @@
 
 from .debug import render_debug, untile
 from .renderer import Renderer
-from .whitted import render_whitted
+from .whitted import render_whitted, render_whitted_checked
 
-__all__ = ["Renderer", "render_debug", "render_whitted", "untile"]
+__all__ = ["Renderer", "render_debug", "render_whitted",
+           "render_whitted_checked", "untile"]

@@ -2,8 +2,8 @@
 path (``renderFrame``, DXRTRenderer.cpp:1370-1408): one primary ray per
 pixel, closest hit, 7-mode procedural shade, miss = constant cyan.
 
-Counterpart of ``directx_raytracer_tpu/render/debug.py`` (``untile``,
-``render_debug``).  The frame is a plain function of (scene tensors,
+Counterpart of ``directx_raytracer_tpu/render/debug.py``
+(``isect_kwargs``, ``untile``, ``render_debug``).  The frame is a plain function of (scene tensors,
 camera snapshot, mode) returning an (H, W, 3) f32 image on the scene's
 device.  Rays are generated in tile-major order (coherent tiles feed the
 binned intersector), per-hit attributes come from ONE packed-record
@@ -18,6 +18,24 @@ from ..models.scene import DeviceScene
 from ..ops.debug_shading import MISS_COLOR, shade_debug
 from ..ops.intersect import hit_record, intersect_bruteforce
 from ..ops.rays import generate_rays, generate_rays_tiled, pick_schedule
+
+
+def isect_kwargs(fn, tile_r):
+    """Kwargs to pass a primary-schedule ray-chunk override to ``fn``.
+
+    Intersect fns are user-supplied callables; only those that declare a
+    ``tile_r`` parameter (the BVH closures, the brute-force default) get
+    the override — third-party fns with the plain ``(origins, dirs,
+    geometry)`` signature keep working."""
+    import inspect
+
+    if tile_r is None:
+        return {}
+    try:
+        params = inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return {}
+    return {"tile_r": tile_r} if "tile_r" in params else {}
 
 
 def untile(flat, width: int, height: int, tile):
@@ -43,7 +61,8 @@ def render_debug(dscene: DeviceScene, cam_position, cam_rotation, mode: int,
       cam_position, cam_rotation: camera snapshot ((3,), (3,3)).
       mode: shading mode 0..6.
       intersect_fn: optional ``(origins, dirs, geometry, tile_r=None) ->
-        Hit`` (e.g. the BVH intersector); defaults to brute force.
+        Hit`` (e.g. the BVH intersector; ``tile_r`` is passed only to
+        callables that declare it); defaults to brute force.
       fetch_record: fetch the fused hit record (exact t/u/v + ids, needed
         by modes 0-3).  Modes 4-6 read only the hit distance, so callers
         that know the mode pass ``mode <= 3`` to skip the frame's largest
@@ -65,7 +84,8 @@ def render_debug(dscene: DeviceScene, cam_position, cam_rotation, mode: int,
     if intersect_fn is None:
         hit = intersect_bruteforce(origins, dirs, geo.woop)
     else:
-        hit = intersect_fn(origins, dirs, geo, tile_r=tile_r)
+        hit = intersect_fn(origins, dirs, geo,
+                           **isect_kwargs(intersect_fn, tile_r))
 
     if fetch_record:
         hit2, local_id, mesh_id, _, _ = hit_record(origins, dirs, geo.packed,

@@ -51,7 +51,8 @@ from ..models.scene import DeviceScene
 from ..ops.intersect import hit_record
 from ..ops.rays import generate_rays, generate_rays_tiled, pick_schedule
 from ..ops.shading import RAY_BIAS, direct_lighting, hit_attributes, reflect, refract_fresnel
-from .debug import untile
+from ..utils import checks
+from .debug import isect_kwargs, untile
 from .whitted import (PIXEL_SENTINEL, _compact_sort, _default_intersect,
                       _default_occluder, queue_capacity)
 
@@ -89,17 +90,20 @@ def _draw(generator: torch.Generator, n: int, device) -> torch.Tensor:
 
 
 def _pt_shade_chunk(dscene, state, uniforms, depth, intersect_fn, occluder_fn,
-                    tile_r=None):
+                    tile_r=None, n_pix: int | None = None):
     """Intersect + shade one wavefront stochastically; returns (contrib,
     candidates): the (N, 3) terminal contribution of each row (zero for
     inactive rows) and the N candidate continuations, one per row.
 
     ``uniforms``: the four (N,) streams of ``_draw``.  Lanes are selected,
     never multiplied by a mask: a miss lane's attributes are arbitrary and
-    may be non-finite."""
+    may be non-finite.  ``n_pix``: the accumulator's pixel rows, for the
+    debug build's range guard on live pixel ids (the primary pass gives it;
+    a bounce pass guards its commit instead)."""
     geo = dscene.geometry
     active = state["active"]
-    hit = intersect_fn(state["origins"], state["dirs"], geo, tile_r=tile_r)
+    hit = intersect_fn(state["origins"], state["dirs"], geo,
+                       **isect_kwargs(intersect_fn, tile_r))
     hit, _, _, _, rec = hit_record(state["origins"], state["dirs"], geo.packed, hit)
     hit_mask = active & hit.mask
     miss_mask = active & ~hit.mask
@@ -126,6 +130,14 @@ def _pt_shade_chunk(dscene, state, uniforms, depth, intersect_fn, occluder_fn,
                                     thpt * attrs["albedo"] * direct, 0.0)
     contrib = contrib + torch.where(is_constant[:, None],
                                     thpt * attrs["albedo"], 0.0)
+    # DXRT_CHECK=1 debug build (see utils.checks): guard what reaches the
+    # accumulator; masked lanes are already zeroed so this flags real bugs.
+    checks.check(lambda: torch.isfinite(contrib).all(),
+                 "non-finite radiance contribution in PT bounce")
+    if n_pix is not None:
+        checks.check(
+            lambda: (~active | ((pixel >= 0) & (pixel < n_pix))).all(),
+            "PT wavefront pixel id out of framebuffer range")
 
     # Continuations (single stochastic branch per ray).
     n = attrs["normal"]
@@ -176,7 +188,8 @@ def _pt_pass(dscene, state, framebuffer, uniforms, depth, intersect_fn,
     whitted._compact_sort).  Returns (queue or None, n_alive)."""
     geo = dscene.geometry
     contrib, cand = _pt_shade_chunk(dscene, state, uniforms, depth,
-                                    intersect_fn, occluder_fn, tile_r=tile_r)
+                                    intersect_fn, occluder_fn, tile_r=tile_r,
+                                    n_pix=framebuffer.shape[0] - 1)
     framebuffer[:contrib.shape[0]] += contrib
     if last:  # the continuations are never consumed: skip the compaction
         return None, 0
@@ -201,6 +214,12 @@ def _pt_pass_bounce(dscene, state, framebuffer, generator, depth, intersect_fn,
                                     intersect_fn, occluder_fn)
     sink = framebuffer.shape[0] - 1
     ids = sub["pixel"]
+    # Debug build: the queue invariant, on the ids as the queue holds them
+    # (before they are redirected to the sink): a live slot's id is in
+    # range, a parked slot's is exactly the sentinel.
+    checks.check(
+        lambda: ((ids >= 0) & ((ids < sink) | (ids == PIXEL_SENTINEL))).all(),
+        "PT bounce commit pixel id outside framebuffer/sentinel range")
     ids = torch.where((ids >= 0) & (ids < sink), ids, sink)
     framebuffer.index_add_(0, ids.long(), contrib)
     if last:
@@ -298,6 +317,8 @@ class PathTracer:
         self.key = torch.Generator().manual_seed(seed)  # CPU: see module doc
 
     def step(self, cam_position, cam_rotation, n: int = 1):
+        """Accumulate ``n`` samples.  With DXRT_CHECK=1 every pass runs its
+        guards (utils.checks) and a failing one raises ``CheckError``."""
         for _ in range(n):
             seed = int(torch.randint(0, 2**63 - 1, (1,), generator=self.key,
                                      dtype=torch.int64))

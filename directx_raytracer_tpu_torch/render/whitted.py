@@ -4,8 +4,8 @@ but never executes.
 Counterpart of ``directx_raytracer_tpu/render/whitted.py``
 (``MIN_THROUGHPUT``, ``PIXEL_SENTINEL``, ``_compact_sort``,
 ``_shade_chunk``, ``_shade_pass``, ``_shade_pass_bounce``, ``render_tile``,
-``spp_offsets``, ``render_whitted``), as plain functions on the scene
-tensors' device.
+``spp_offsets``, ``render_whitted``, ``render_whitted_checked``), as plain
+functions on the scene tensors' device.
 
 The reference parses materials, point lights and textures
 (CRTSceneParser.cpp:152-405) yet uploads none of it to the GPU, caps
@@ -47,7 +47,8 @@ from ..models.scene import DeviceScene
 from ..ops.intersect import hit_record, intersect_bruteforce, occluded_bruteforce
 from ..ops.rays import RGSS_OFFSETS, generate_rays, generate_rays_tiled, pick_schedule
 from ..ops.shading import RAY_BIAS, direct_lighting, hit_attributes, reflect, refract_fresnel
-from .debug import untile
+from ..utils import checks
+from .debug import isect_kwargs, untile
 
 # Continuations whose peak throughput falls below this contribute < 1/256 of
 # a pixel value — kill them instead of tracing.
@@ -143,8 +144,12 @@ def _compact_sort(cand: dict, capacity: int, scene_lo, scene_hi,
 
 
 def _shade_chunk(dscene, state, intersect_fn, occluder_fn, last: bool,
-                 tile_r=None):
+                 tile_r=None, n_pix: int | None = None):
     """Intersect + shade one wavefront; returns (contrib, candidates).
+
+    ``n_pix``: the framebuffer's pixel rows, for the debug build's range
+    guard on live pixel ids (the primary pass gives it; a bounce pass
+    guards its commit instead, see ``_shade_pass_bounce``).
 
     ``contrib`` is the (N, 3) terminal contribution of each row (zero for
     inactive rows).  Candidates come back as (A, B) dicts of N rows: A =
@@ -154,7 +159,8 @@ def _shade_chunk(dscene, state, intersect_fn, occluder_fn, last: bool,
     geo = dscene.geometry
     active = state["active"]
 
-    hit = intersect_fn(state["origins"], state["dirs"], geo, tile_r=tile_r)
+    hit = intersect_fn(state["origins"], state["dirs"], geo,
+                       **isect_kwargs(intersect_fn, tile_r))
     hit, _, _, _, rec = hit_record(state["origins"], state["dirs"],
                                    geo.packed, hit)
     hit_mask = active & hit.mask
@@ -197,6 +203,16 @@ def _shade_chunk(dscene, state, intersect_fn, occluder_fn, last: bool,
     contrib = contrib + torch.where(diffuse_mask[:, None], thpt * shaded, 0.0)
     contrib = contrib + torch.where(
         (hit_mask & is_constant)[:, None], thpt * attrs["albedo"], 0.0)
+    # DXRT_CHECK=1 debug build: the contribution is exactly what becomes
+    # user-visible, so a NaN/inf here is a real shading bug (masked lanes
+    # are already zeroed); a live ray's pixel id outside the framebuffer
+    # would be silently sent to the sink row by the commit.
+    checks.check(lambda: torch.isfinite(contrib).all(),
+                 "non-finite framebuffer contribution in shade pass")
+    if n_pix is not None:
+        checks.check(
+            lambda: (~active | ((pixel >= 0) & (pixel < n_pix))).all(),
+            "wavefront pixel id out of framebuffer range")
 
     if last:
         return contrib, None
@@ -259,7 +275,8 @@ def _shade_pass(dscene, state, framebuffer, intersect_fn, occluder_fn,
     continuations into a queue of ``capacity``.  Returns (queue or None,
     n_alive, stats)."""
     contrib, cands = _shade_chunk(dscene, state, intersect_fn, occluder_fn,
-                                  last, tile_r=tile_r)
+                                  last, tile_r=tile_r,
+                                  n_pix=framebuffer.shape[0] - 1)
     framebuffer[:contrib.shape[0]] += contrib
     if cands is None:
         return None, 0, {"alive": 0, "dropped": 0}
@@ -280,6 +297,12 @@ def _shade_pass_bounce(dscene, state, framebuffer, n_alive: int,
                                   last)
     sink = framebuffer.shape[0] - 1
     ids = sub["pixel"]
+    # Debug build: the queue invariant, on the ids as the queue holds them
+    # (before they are redirected to the sink): live ids in range, parked
+    # ids exactly the sentinel.
+    checks.check(
+        lambda: ((ids >= 0) & ((ids < sink) | (ids == PIXEL_SENTINEL))).all(),
+        "bounce commit pixel id outside framebuffer/sentinel range")
     ids = torch.where((ids >= 0) & (ids < sink), ids, sink)
     framebuffer.index_add_(0, ids.long(), contrib)
     if cands is None:
@@ -296,19 +319,29 @@ def render_tile(
     height: int,
     offsets,
     weight: float,
+    row_start: int = 0,
+    rows: int | None = None,
     max_depth: int = 5,
     intersect_fn=None,
     occluder_factory=None,
     queue_factor: int | None = None,
+    offset_weights=None,
 ):
-    """Render a (height x width) frame, one wavefront per sub-pixel offset,
-    accumulated into one framebuffer.
+    """Render the full-width row band [row_start, row_start + rows) of a
+    (height x width) frustum (None: the whole frame), one wavefront per
+    sub-pixel offset, accumulated into one framebuffer.  A band may reach
+    below the frustum (``row_start + rows > height``): the multi-device
+    path pads its stripes and crops.
 
     Args:
       offsets: sequence of (x, y) sub-pixel offsets.
-      weight: per-sample framebuffer weight, normally 1 / len(offsets).
+      weight: per-sample framebuffer weight, normally 1 / total spp (the
+        total across all shards, not just this call's offsets).
+      offset_weights: optional per-offset multipliers on ``weight``.  The
+        multi-device path pads the sample axis with them: a padding offset
+        carries weight 0 and contributes nothing.
 
-    Returns (H, W, 3) image + stats {alive, dropped} per pass (int32 CPU
+    Returns (rows, W, 3) image + stats {alive, dropped} per pass (int32 CPU
     tensors, ``len(offsets) * passes`` entries).
     """
     geo = dscene.geometry
@@ -320,31 +353,35 @@ def render_tile(
         # can't outgrow the previous one, so capacity n_pix suffices.
         queue_factor = 2 if dscene.has_refractive else 1
 
-    n_pix = width * height
+    rows = height if rows is None else rows
+    n_pix = width * rows
     if n_pix >= PIXEL_SENTINEL:
         raise ValueError(f"{n_pix} pixels: ids must stay below {PIXEL_SENTINEL}")
     # The primary wavefront is generated in tile-major order and the
     # framebuffer lives in the same order; the primary pass's ray chunk
     # matches the pixel tile, bounce batches take the intersector's default.
-    tile, tile_r = pick_schedule(height, width)
+    tile, tile_r = pick_schedule(rows, width)
     capacity = queue_capacity(n_pix, queue_factor)
+    if offset_weights is None:
+        offset_weights = [1.0] * len(offsets)
 
     # n_pix rows + one sink row for ids the scatter must drop.
     framebuffer = torch.zeros((n_pix + 1, 3), dtype=torch.float32, device=dev)
     stats = []
-    for offset in offsets:
+    for offset, offset_weight in zip(offsets, offset_weights):
         if tile is None:
             origins, dirs = generate_rays(cam_position, cam_rotation, width,
-                                          height, offset, device=dev)
+                                          height, offset, row_start, rows,
+                                          device=dev)
         else:
             origins, dirs = generate_rays_tiled(
                 cam_position, cam_rotation, width, height, tile[0], tile[1],
-                offset, device=dev)
+                offset, row_start, rows, device=dev)
         state = {
             "origins": origins,
             "dirs": dirs,
             "throughput": torch.full((n_pix, 3), weight, dtype=torch.float32,
-                                     device=dev),
+                                     device=dev) * float(offset_weight),
             "pixel": torch.arange(n_pix, dtype=torch.int32, device=dev),
             "active": torch.ones((n_pix,), dtype=torch.bool, device=dev),
         }
@@ -362,7 +399,7 @@ def render_tile(
             if state is None:
                 break
 
-    image = untile(framebuffer[:n_pix], width, height, tile)
+    image = untile(framebuffer[:n_pix], width, rows, tile)
     return image, {
         "alive": torch.tensor([s["alive"] for s in stats], dtype=torch.int32),
         "dropped": torch.tensor([s["dropped"] for s in stats],
@@ -431,7 +468,30 @@ def render_whitted(
     offs = spp_offsets(spp)
     return render_tile(
         dscene, cam_position, cam_rotation, width, height, offsets=offs,
-        weight=1.0 / len(offs), max_depth=max_depth,
+        weight=1.0 / len(offs), row_start=0, rows=height, max_depth=max_depth,
         intersect_fn=intersect_fn, occluder_factory=occluder_factory,
         queue_factor=queue_factor,
     )
+
+
+def render_whitted_checked(
+    dscene: DeviceScene,
+    cam_position,
+    cam_rotation,
+    width: int,
+    height: int,
+    max_depth: int = 5,
+    spp: int = 1,
+    intersect_fn=None,
+    occluder_factory=None,
+    queue_factor=None,
+):
+    """``render_whitted`` with the debug build's guards armed (see
+    utils.checks): raises ``checks.CheckError`` on a non-finite framebuffer
+    contribution or an out-of-range wavefront pixel id; same return value
+    otherwise.  Each guard costs one host sync."""
+    with checks.armed():
+        return render_whitted(
+            dscene, cam_position, cam_rotation, width, height,
+            max_depth=max_depth, spp=spp, intersect_fn=intersect_fn,
+            occluder_factory=occluder_factory, queue_factor=queue_factor)

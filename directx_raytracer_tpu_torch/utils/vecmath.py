@@ -2,8 +2,8 @@
 
 Counterpart of ``directx_raytracer_tpu/utils/vecmath.py``: its host-side
 numpy helpers (``vec3``, ``np_normalize``, ``allclose_crt``, ``rot_x/y/z``,
-``row_vec_mul``) copied unchanged, and the device-side ``normalize`` the
-Whitted shader uses, on torch tensors.
+``row_vec_mul``) copied unchanged, and the device-side ``normalize``,
+``dot`` and ``cross`` on torch tensors.
 
 The reference implements a tiny 3-float vector (`CRTVector`) and a 3x3
 row-major matrix (`CRTMatrix`) with two multiplication conventions:
@@ -44,6 +44,15 @@ def normalize(v: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
     if eps:
         n = n.clamp(min=eps)
     return v / n
+
+
+def dot(a: torch.Tensor, b: torch.Tensor, dim: int = -1,
+        keepdim: bool = False) -> torch.Tensor:
+    return (a * b).sum(dim=dim, keepdim=keepdim)
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.cross(a, b, dim=-1)
 
 
 def np_normalize(v):

@@ -15,7 +15,7 @@ status bar.  Headless GPU hosts get the same control surface:
 * ``interactive`` — live ANSI-terminal viewport with WASD/arrow controls,
   per-second FPS line, mode switching, frame saving;
 * ``pathtrace`` — progressive path-traced render with checkpoint/resume;
-* ``devices``  — list the CUDA devices.
+* ``devices``  — list the CUDA devices (and the process group, if joined).
 
     python -m directx_raytracer_tpu_torch.viewer render --builtin bench_scene -o out.png
     python -m directx_raytracer_tpu_torch.viewer pathtrace --builtin bench_scene --samples 16 -o pt.png

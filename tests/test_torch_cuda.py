@@ -217,13 +217,15 @@ def closest_vs_plain(x, tile_r, chunk=ci.CLOSEST_CHUNK):
     assert (rel <= 1e-5).float().mean() >= 0.999
 
 
-@pytest.mark.parametrize("tile_r", [768, 256, 100])
+@pytest.mark.parametrize("tile_r", [768, 640, 256, 100])
 def test_closest_kernel_matches_plain(x, tile_r):
+    """768: the 1080p frame's tiles; 640: those of a 540-row stripe of the
+    multi-device path; 256: a bounce queue's; 100: no multiple of a warp."""
     closest_vs_plain(x, tile_r)
 
 
 @pytest.mark.parametrize("chunk", [1, 3])
-@pytest.mark.parametrize("tile_r", [768, 256, 100])
+@pytest.mark.parametrize("tile_r", [768, 640, 256, 100])
 def test_closest_kernel_split_lists_match_plain(x, tile_r, chunk):
     """Lists cut into work items of 1 or 3 positions, merged by the
     packed-key atomicMin: the same gates against the plain walk."""
@@ -522,3 +524,126 @@ def test_pathtrace_sample_matches_plain(cuda):
     assert torch.isfinite(got).all() and (got >= 0).all()
     diff = np.abs(to_u8(got).astype(int) - to_u8(want).astype(int))
     assert ((diff <= 2).all(axis=-1)).mean() >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# The oracles on the card against the kernels, the checks, the routes
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def small(cuda, x):
+    """bench_scene(3_000)'s geometry, its brute-force hits for the fixture's
+    rays and the LBVH over it."""
+    from directx_raytracer_tpu_torch.bvh import build_lbvh
+    from directx_raytracer_tpu_torch.ops.intersect import intersect_bruteforce
+
+    geo = build_device_scene(testscenes.bench_scene(3_000, W, H), cuda).geometry
+    return dict(geo=geo, lbvh=build_lbvh(geo),
+                ref=intersect_bruteforce(x["o"], x["d"], geo.woop))
+
+
+def assert_hits_agree(got, ref, t_rtol=1e-3):
+    """The intersection gates against brute force: hit/miss >= 99.9%, same
+    winner >= 99%, t within 1e-3 relative on >= 99.9% of common hits."""
+    torch.cuda.synchronize()
+    assert (got.mask == ref.mask).float().mean() >= 0.999
+    both = got.mask & ref.mask
+    assert both.sum() > 500
+    assert (got.tri[both] == ref.tri[both]).float().mean() >= 0.99
+    rel = (got.t[both] - ref.t[both]).abs() / ref.t[both].abs()
+    assert (rel <= t_rtol).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("route", ["traverse_closest", "intersect_clustered",
+                                   "intersect_fused"])
+def test_intersectors_agree_with_bruteforce_on_the_card(x, small, route):
+    from directx_raytracer_tpu_torch.bvh import (intersect_clustered,
+                                                 traverse_closest)
+
+    o, d, bvh = x["o"], x["d"], x["bvh"]
+    before = dict(ci.LAUNCHES)
+    if route == "traverse_closest":
+        got = traverse_closest(o, d, small["lbvh"], block=2000)
+    elif route == "intersect_clustered":
+        got = intersect_clustered(o, d, bvh.clusters, block=1536)
+    else:
+        got = intersect_fused(o, d, bvh.clusters, bvh.wrows, x["tile_r"])
+    assert_hits_agree(got, small["ref"])
+    # Only the fused route launches kernels: the oracles are plain torch.
+    launched = ci.LAUNCHES["closest_hit"] - before["closest_hit"]
+    assert launched == (1 if route == "intersect_fused" else 0)
+
+
+def test_occlusion_oracles_agree_with_any_hit(x, small):
+    from directx_raytracer_tpu_torch.bvh import (occluded_clustered,
+                                                 traverse_occluded)
+
+    o, d, t_max = shadow_batch(x)
+    bvh = x["bvh"]
+    blocked = ci.occluded_fused(o, d, bvh.clusters, bvh.wrows, t_max)
+    assert blocked.any() and not blocked.all()
+    for got in (traverse_occluded(o, d, small["lbvh"], t_max),
+                occluded_clustered(o, d, bvh.clusters, t_max)):
+        assert (got == blocked).float().mean() >= 0.999
+
+
+def test_binning_oracle_lists_the_kernels_sets(x):
+    from directx_raytracer_tpu_torch.bvh.binning_oracle import bin_clusters
+
+    tile_r = x["tile_r"]
+    tiles = x["o"].shape[0] // tile_r
+    cs = x["bvh"].clusters
+    ids, _, counts = bin_clusters(x["o"].reshape(tiles, tile_r, 3),
+                                  x["d"].reshape(tiles, tile_r, 3), cs)
+    visit, _, k_counts, _ = ci.bin_lists(x["tp"], x["cb"])
+    torch.cuda.synchronize()
+    assert torch.equal(counts, k_counts) and counts.sum() > 0
+    for tile in range(tiles):
+        n = int(counts[tile])
+        assert set(ids[tile, :n].tolist()) == set(visit[tile, :n].tolist())
+
+
+def test_lbvh_on_the_card_equals_the_cpu_build(cuda, small):
+    from directx_raytracer_tpu_torch.bvh import build_lbvh
+
+    cpu = build_lbvh(small["geo"].to("cpu"))
+    for name in ("order", "left", "skip", "aabb_min", "aabb_max"):
+        assert torch.equal(getattr(small["lbvh"], name).cpu(),
+                           getattr(cpu, name)), name
+
+
+def test_checked_frame_on_the_card(cuda, monkeypatch):
+    import dataclasses
+
+    from directx_raytracer_tpu_torch.utils import checks
+
+    r = Renderer(testscenes.bench_scene(3_000, W, H), W, H, device=cuda)
+    monkeypatch.setenv("DXRT_CHECK", "0")
+    unarmed, _ = r.render_whitted_frame(max_depth=3)
+    monkeypatch.setenv("DXRT_CHECK", "1")
+    armed, _ = r.render_whitted_frame(max_depth=3)
+    assert (armed - unarmed).abs().max() <= 1e-6
+    intensity = r.dscene.lights.intensity.clone()
+    intensity[0] = float("nan")
+    r.dscene = dataclasses.replace(r.dscene, lights=dataclasses.replace(
+        r.dscene.lights, intensity=intensity))
+    with pytest.raises(checks.CheckError, match="non-finite"):
+        r.render_whitted_frame(max_depth=3)
+
+
+def test_cuda_renderer_takes_the_kernels_unless_asked(cuda):
+    """use_kernels=None on a CUDA device is the kernels; the walker only
+    when asked, and it launches nothing."""
+    scene = testscenes.bench_scene(3_000, W, H)
+    ci.reset_launch_counts()
+    kernels = Renderer(scene, W, H, device=cuda).render_frame(5)
+    assert ci.LAUNCHES["closest_hit"] == 1
+    walker = Renderer(scene, W, H, device=cuda,
+                      use_kernels=False).render_frame(5)
+    brute = Renderer(scene, W, H, device=cuda, use_bvh=False).render_frame(5)
+    torch.cuda.synchronize()
+    assert ci.LAUNCHES["closest_hit"] == 1
+    for other in (walker, brute):
+        diff = np.abs(to_u8(kernels).astype(int) - to_u8(other).astype(int))
+        assert ((diff <= 2).all(axis=-1)).mean() >= 0.99

@@ -180,14 +180,21 @@ def test_to_u8_and_png(tmp_path):
 
 
 def test_import_leaves_jax_out():
-    """Importing every port module (the precision micro's tool among them)
-    and chip_smoke.py pulls in neither jax nor the JAX package."""
+    """Importing every port module (the precision micro's tool, the
+    multi-device package, the checks, the native parser's bindings and the
+    oracles among them) and chip_smoke.py pulls in neither jax nor the JAX
+    package."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import directx_raytracer_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "importlib.import_module('directx_raytracer_tpu_torch.tools.precision_micro')\n"
+        "for name in ('parallel', 'parallel.sharding', 'parallel.multihost',\n"
+        "             'parallel.launch', 'utils.checks', 'native.build',\n"
+        "             'native.crtscene_native', 'bvh.lbvh', 'bvh.traverse',\n"
+        "             'bvh.binning_oracle', 'tools.dryrun_multichip'):\n"
+        "    assert 'directx_raytracer_tpu_torch.' + name in sys.modules, name\n"
         "importlib.import_module('chip_smoke')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.split('.')[0] == 'directx_raytracer_tpu']\n"

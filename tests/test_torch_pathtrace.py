@@ -312,7 +312,8 @@ def test_bvh_sample_matches_bruteforce():
     (binning, closest_hit_plain, any_hit_plain on the CPU) against the same
     sample through brute force, from the same generator seed."""
     w, h = 96, 48
-    r = Renderer(pts.bench_scene(3_000, w, h), w, h, device="cpu")
+    r = Renderer(pts.bench_scene(3_000, w, h), w, h, device="cpu",
+                 use_kernels=True)
     assert r.bvh is not None
     pos, rot = r.camera.snapshot()
 

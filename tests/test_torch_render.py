@@ -47,7 +47,8 @@ class Pair:
     def __init__(self, name):
         self.jscene = SCENES[name](jts)
         self.jd = j_build(self.jscene)
-        self.renderer = Renderer(SCENES[name](pts), W, H, device="cpu")
+        self.renderer = Renderer(SCENES[name](pts), W, H, device="cpu",
+                                 use_kernels=True)
         self.pos, self.rot = self.jscene.camera.snapshot()
         self._port, self._jax = {}, {}
 

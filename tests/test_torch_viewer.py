@@ -169,3 +169,25 @@ def test_interactive_loop_exits_on_x(monkeypatch, capsys, tmp_path):
     assert labels == [MODE_NAMES[5], "whitted", MODE_NAMES[3]]
     assert "saved frame.png" in out and out.count("▀") > 3 * 32
     assert read_png(tmp_path / "frame.png").shape == (24, 32, 3)
+
+
+def test_devices_reports_the_process_group(capsys):
+    """In a process that has joined a process group, ``devices`` also
+    reports the job: world size, rank and backend (here a one-process gloo
+    group over localhost)."""
+    import torch.distributed as dist
+
+    from directx_raytracer_tpu_torch.parallel import init_distributed
+    from directx_raytracer_tpu_torch.parallel.launch import _free_port
+
+    assert "distributed" not in describe_devices()
+    assert init_distributed(f"localhost:{_free_port()}", 1, 0,
+                            backend="gloo") == 1
+    try:
+        papp.main(["devices", *CPU])
+        out = capsys.readouterr().out.strip()
+    finally:
+        dist.destroy_process_group()
+    assert out.splitlines()[-1] == ("distributed: rank 0 of 1 processes, "
+                                    "backend gloo")
+    assert "distributed" not in describe_devices()

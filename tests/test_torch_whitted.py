@@ -219,7 +219,8 @@ def test_bench_scene_renderer_matches_jax():
     pos, rot = scene.camera.snapshot()
     jimg, jstats = jw.render_whitted(j_build(scene), pos, rot, w, h,
                                      max_depth=3)
-    r = Renderer(pts.bench_scene(3_000, w, h), w, h, device="cpu")
+    r = Renderer(pts.bench_scene(3_000, w, h), w, h, device="cpu",
+                 use_kernels=True)
     assert r.bvh is not None and r.occluder_factory is not None
     img, stats = r.render_whitted_frame(max_depth=3)
     assert_frames_agree(img, stats, jimg, jstats, w * h)
@@ -240,6 +241,100 @@ def test_viewer_render_whitted_writes_png(tmp_path, capsys):
     img, _ = Renderer(pts.cornell_box(), 32, 24, device="cpu") \
         .render_whitted_frame(max_depth=2, spp=4)
     np.testing.assert_array_equal(np.asarray(Image.open(out)), to_u8(img))
+
+
+# ---------------------------------------------------------------------------
+# Row bands of render_tile
+# ---------------------------------------------------------------------------
+
+
+def band_scene(name):
+    if name == "cornell":
+        return pts.cornell_box(64, 48), 64, 48, 2
+    return pts.bench_scene(3_000, 96, 48), 96, 48, 3  # bounce passes alive
+
+
+@pytest.mark.parametrize("name,bands", [
+    ("cornell", [(0, 24), (24, 24)]),
+    ("cornell", [(0, 12), (12, 24), (36, 12)]),
+    ("cornell", [(0, 7), (7, 41)]),        # row-major bands (no tile divides 7)
+    ("bench", [(0, 24), (24, 24)]),
+])
+def test_bands_concatenate_to_the_full_frame(name, bands):
+    """``render_tile(row_start, rows)`` stripes are the frame's rows
+    exactly: a pixel's rays and shading do not depend on its band, and the
+    sink row and the queue follow the band's pixel count."""
+    from directx_raytracer_tpu_torch.models.scene import build_device_scene
+
+    scene, w, h, depth = band_scene(name)
+    d = build_device_scene(scene, "cpu")
+    pos, rot = scene.camera.snapshot()
+    offs = pw.spp_offsets(1)
+    full, full_stats = pw.render_tile(d, pos, rot, w, h, offs, 1.0,
+                                      max_depth=depth)
+    whole, _ = render_whitted(d, pos, rot, w, h, max_depth=depth)
+    assert torch.equal(full, whole)
+    stripes, alive = [], 0
+    for row_start, rows in bands:
+        img, stats = pw.render_tile(d, pos, rot, w, h, offs, 1.0,
+                                    row_start=row_start, rows=rows,
+                                    max_depth=depth)
+        assert img.shape == (rows, w, 3)
+        stripes.append(img)
+        alive += int(stats["alive"].sum())
+    np.testing.assert_array_equal(torch.cat(stripes).numpy(), full.numpy())
+    assert alive == int(full_stats["alive"].sum())
+    if name == "bench":
+        assert alive > 0
+
+
+def test_band_past_the_bottom_renders_and_crops():
+    """A band reaching below the frustum (the multi-device path's last
+    stripe) renders; its rows inside the frame are the frame's."""
+    from directx_raytracer_tpu_torch.models.scene import build_device_scene
+
+    scene = pts.cornell_box(64, 47)
+    d = build_device_scene(scene, "cpu")
+    pos, rot = scene.camera.snapshot()
+    offs = pw.spp_offsets(1)
+    full, _ = render_whitted(d, pos, rot, 64, 47, max_depth=2)
+    img, _ = pw.render_tile(d, pos, rot, 64, 47, offs, 1.0, row_start=40,
+                            rows=8, max_depth=2)
+    assert img.shape == (8, 64, 3) and torch.isfinite(img).all()
+    np.testing.assert_array_equal(img[:7].numpy(), full[40:].numpy())
+
+
+def test_band_matches_jax_band():
+    """The same band through the JAX ``render_tile``: the frame gate."""
+    scene = jts.cornell_box(64, 48)
+    jd = j_build(scene)
+    pos, rot = scene.camera.snapshot()
+    offs = pw.spp_offsets(4)
+    kw = dict(row_start=12, rows=24, max_depth=2)
+    jimg, jstats = jw.render_tile(jd, pos, rot, 64, 48,
+                                  jnp.asarray(offs, jnp.float32), 0.25, **kw)
+    img, stats = pw.render_tile(port_scene(jd), pos, rot, 64, 48, offs, 0.25,
+                                **kw)
+    assert img.shape == (24, 64, 3)
+    assert_frames_agree(img, stats, jimg, jstats, 64 * 24)
+
+
+def test_zero_offset_weight_contributes_nothing():
+    from directx_raytracer_tpu_torch.models.scene import build_device_scene
+
+    scene = pts.cornell_box(32, 24)
+    d = build_device_scene(scene, "cpu")
+    pos, rot = scene.camera.snapshot()
+    one, _ = pw.render_tile(d, pos, rot, 32, 24, [(0.25, 0.75)], 0.5,
+                            max_depth=2)
+    padded, stats = pw.render_tile(
+        d, pos, rot, 32, 24, [(0.25, 0.75), (0.5, 0.5)], 0.5, max_depth=2,
+        offset_weights=[1.0, 0.0])
+    assert torch.equal(padded, one) and one.max() > 0.02
+    assert stats["alive"].shape == (4,)  # the padding offset still traces
+    both, _ = pw.render_tile(d, pos, rot, 32, 24, [(0.25, 0.75), (0.5, 0.5)],
+                             0.5, max_depth=2, offset_weights=[1.0, 1.0])
+    assert not torch.equal(both, one)
 
 
 # ---------------------------------------------------------------------------
