@@ -13,7 +13,7 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions; no
    CUDA device is a failure — nothing falls back to the CPU;
-2. build the five CUDA kernels' sources in csrc/ (one nvcc per source,
+2. build the four CUDA kernel sources in csrc/ (one nvcc per source,
    all started together, then one link; seconds and the build log
    printed);
 3. the binning kernel (bin_lists) and closest_hit against their plain
@@ -109,7 +109,25 @@ Phases, each of which raises (exit code != 0) on failure:
    occluded_clustered with any_hit on the small shadow batch; the binning
    oracle's visit sets must equal bin_lists's at the 100k primary batch;
    build_lbvh(100_000) and traverse_closest on a 64k-ray block are timed
-   (an oracle's times, not a result).
+   (an oracle's times, not a result);
+14. the measurement layer (run on the 100k Renderer and the 1M one of
+   phase 7, so no scene is built twice): the tools' counts first, with
+   launch counters reset just before and read just after (exec_stats at
+   the 100k and 1M primary batches must launch closest_hit's counting
+   build, "closest_hit_exec"; each batch record's launches are those of
+   its own exec_stats run, the bounce's those of the Whitted render that
+   hands it over); that build at the 100k primary, the Whitted
+   bounce and the 1M primary batches: best t and slot bit-equal to the
+   production build's, per tile the plain walk's visits <= executed <=
+   counts, and with one work item a tile executed equal to the plain
+   visits on >= 99.9% of tiles; timed beside the production build in the
+   same run; then kernel_micro (E_real, E_all, E_none), cull_stats,
+   whitted_bench for 2 frames, verify_drive into a temporary directory
+   (its PNGs must exist and not be black), and the bench's functions:
+   kernel_smoke and golden_tile_gate on the card, and measure at 5 / 2 / 3
+   frames, whose line must carry bench.py's keys (but the two the card
+   has no counterpart of) with finite positive values and no error, and
+   whose mode-5 median must lie within 2x of phase 5's.
 
 Each kernel's line in the kernels JSON also carries its bound (the least
 time the card could take for the same work: bytes over the memory rate or
@@ -132,6 +150,11 @@ timed and a pause, because the profiler loses the first records of a window,
 and a window that lost more is taken once more (``device_ms``); a line
 before the kernels line says what every window saw.
 
+closest_hit_exec, the counting build of closest_hit (phase 14), carries
+its ms beside the production build's (``production_ms``), and per batch
+the executed, plain-walk and scheduled visits.  The build log's register
+counts of each closest_hit instantiation are printed after the build.
+
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -139,7 +162,9 @@ The last lines are the kernels JSON line, the card line, and
 from __future__ import annotations
 
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -179,9 +204,13 @@ from directx_raytracer_tpu_torch.render.debug import render_debug, untile
 from directx_raytracer_tpu_torch.render.pathtrace import PathTracer, pathtrace_tile
 from directx_raytracer_tpu_torch.render.renderer import Renderer
 from directx_raytracer_tpu_torch.render.whitted import render_whitted
+from directx_raytracer_tpu_torch.tools import bench as dxrt_bench
+from directx_raytracer_tpu_torch.tools import (cull_stats, exec_stats,
+                                               kernel_micro, verify_drive,
+                                               whitted_bench)
 from directx_raytracer_tpu_torch.tools import precision_micro as pm
 from directx_raytracer_tpu_torch.utils import checks
-from directx_raytracer_tpu_torch.utils.image import to_u8, write_png
+from directx_raytracer_tpu_torch.utils.image import read_png, to_u8, write_png
 from directx_raytracer_tpu_torch.viewer.app import main as viewer_main
 
 BIG_SCENE = (100_000, 1920, 1080)
@@ -197,6 +226,8 @@ PT_DEPTH = 4  # the tools/pt_bench.py workload: 1080p, 100k, depth 4
 PT_SAMPLES = 4
 PT_REPS = 5
 PT_DIRECT_SAMPLES = 8
+BENCH_FRAMES = (5, 2, 3)  # measure's mode-5, Whitted and 1M frames
+BENCH_SPREAD = 2.0  # its mode-5 median against phase 5's, either way
 MULTI_GRID = (2, 2)  # tiles x samples: four processes on the one card
 MULTI_SPP = 4
 MULTI_TIMEOUT = 420  # seconds for the four processes, start to end
@@ -248,6 +279,11 @@ FOLD_AGREE = 0.995
 #   gate of tests/test_pathtrace.py:19-33 (the jitter blurs edges).
 PT_DIRECT_ERR = 0.02
 
+# * closest_hit's counting build (phase 14): results bit-equal to the
+#   production build's; with one work item a tile its executed visits
+#   equal the plain walk's on >= 99.9% of tiles (FMA contraction may flip
+#   the gate on a knife-edge entry).
+EXEC_EQUAL_SHARE = 0.999
 # * the oracles against brute force: the hit and winner gates above, and t
 #   within the repository's own 1e-3 relative (bench.py:156-164) on 99.9% of
 #   common hits: the rope walk evaluates Moeller-Trumbore where brute force
@@ -514,10 +550,8 @@ def bin_batch(label, tp, cb, sb, launches, card):
 def closest_args(o, d, bvh, tile_r):
     """The closest_hit operands of a ray batch, as intersect_fused builds
     them (the lists binned by the plain binner)."""
-    o, d, t_init = ci.pad_and_seed(o, d, bvh.clusters, tile_r)
-    lists = ci.bin_lists(ci.tile_params(o, d, tile_r),
-                         ci.cluster_rows(bvh.clusters), bvh.srows, plain=True)
-    return (o, d, t_init, bvh.wrows, *lists[:3], tile_r)
+    return ci.closest_query(o, d, bvh.clusters, bvh.wrows, tile_r, plain=True,
+                            srows=bvh.srows).args()
 
 
 def walk_bytes(args) -> int:
@@ -525,11 +559,6 @@ def walk_bytes(args) -> int:
     (id, entry) once."""
     counts = args[6]
     return nbytes(*args[:4], counts) + 8 * int(counts.sum())
-
-
-def closest_items(counts) -> int:
-    """Work items of the closest_hit kernel for these lists."""
-    return int(((counts + ci.CLOSEST_CHUNK - 1) // ci.CLOSEST_CHUNK).sum())
 
 
 def check_closest(args, label):
@@ -550,7 +579,7 @@ def check_closest(args, label):
     max_abs = ((bt_k[both][same] - bt_p[both][same]).abs().max().item()
                if same.any() else 0.0)
     print(f"[{label}] closest_hit: {counts.shape[0]} tiles x {args[-1]} "
-          f"rays, longest list {visit.shape[1]}, {closest_items(counts)} work "
+          f"rays, longest list {visit.shape[1]}, {exec_stats.work_items(counts)} work "
           f"items, {int(hp.sum())} hits; "
           f"hit/miss agreement {hit_agree:.6f}, winner agreement "
           f"{winner:.6f}, t within {T_RTOL:g} rel on {t_share:.6f}; the "
@@ -924,7 +953,7 @@ def pt_path(r, card):
         _, _, counts, longest = ci.bin_lists(ci.tile_params(po, pd, tr), cb)
         passes.append(dict(alive=o.shape[0], tiles=counts.shape[0], tile_r=tr,
                            listed=int(counts.sum()), longest=longest,
-                           items=closest_items(counts)))
+                           items=exec_stats.work_items(counts)))
         if len(passes) == 2:
             kept["rays"] = (o.clone(), d.clone(), tr, made)
         return hit
@@ -1106,7 +1135,7 @@ def huge_path(device, card):
           f"{frame_ms:.4f} ms median of {HUGE_REPS}, "
           f"{width * height / frame_ms / 1e3:.2f} Mrays/s [{card}]")
     rec["launches"] = launches["bin_clusters_super"]
-    return record, closest, launches
+    return record, closest, launches, r
 
 
 def overflow_case(device, c=40_000):
@@ -1557,6 +1586,175 @@ def oracles_path(r, card):
     require(agree >= HIT_AGREE, f"the 100k walk's hit/miss agreement {agree}")
 
 
+def closest_registers(log: str) -> dict:
+    """Registers of each closest_hit_kernel instantiation in the build
+    log (ptxas -v), keyed (rays a thread, count_exec)."""
+    regs, name = {}, None
+    for text in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", text)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", text)
+        k = re.search(r"closest_hit_kernelILi(\d+)E(?:Lb([01])E)?", name or "")
+        if m and k:
+            regs[(int(k.group(1)), k.group(2) == "1")] = int(m.group(1))
+            name = None
+    return regs
+
+
+def time_both(fa, fb, reps: int = KERNEL_REPS):
+    """Medians of ``fa`` and ``fb`` timed in turns (a, b, b, a), each the
+    mean of its two medians by ``time_ms``."""
+    a1, b1, b2, a2 = (time_ms(f, reps) for f in (fa, fb, fb, fa))
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def count_build_batch(label, b, launches, card):
+    """closest_hit's counting build at one batch (a ci.ClosestQuery):
+    results bit-equal to the production build's, the plain walk's visits
+    <= executed <= counts per tile, executed == the plain visits with one
+    item a tile; timed beside the production build.  Returns the batch's
+    record and the largest t difference to the plain walk among equal
+    winners."""
+    args, counts = b.args(), b.counts
+    prod = ci.closest_hit(*args, width=b.width)
+    bt, bs, executed = ci.closest_hit(*args, width=b.width, count_exec=True)
+    one = ci.closest_hit(*args, width=b.width, chunk=max(b.width, 1),
+                         count_exec=True)[2]
+    work = {}
+    bt_p, bs_p, plain = ci.closest_hit_plain(*args, stats=work, count_exec=True)
+    torch.cuda.synchronize()
+    same = (torch.equal(prod[0].view(torch.int32), bt.view(torch.int32))
+            and torch.equal(prod[1], bs))
+    below = int((plain > executed).sum())
+    above = int((executed > counts).sum())
+    equal = (one == plain).float().mean().item()
+    both = (bs >= 0) & (bs == bs_p)
+    err = (bt[both] - bt_p[both]).abs().max().item() if both.any() else 0.0
+    print(f"[{label}] closest_hit_exec: {counts.shape[0]} tiles x {b.tile_r} "
+          f"rays; executed {int(executed.sum())}, plain walk {int(plain.sum())}, "
+          f"scheduled {int(counts.sum())} visits; results bit-equal to the "
+          f"production build: {same}; tiles with executed < plain {below}, "
+          f"executed > counts {above}; one item a tile: executed == plain on "
+          f"{equal:.6f} of tiles")
+    require(same, f"closest_hit_exec changes the results at the {label} batch")
+    require(below == 0 and above == 0,
+            f"closest_hit_exec at the {label} batch: {below} tiles below the "
+            f"plain walk, {above} above their counts")
+    require(equal >= EXEC_EQUAL_SHARE,
+            f"closest_hit_exec with one item a tile equals the plain walk on "
+            f"{equal} of tiles")
+    prod_ms, ms = time_both(lambda: ci.closest_hit(*args, width=b.width),
+                            lambda: ci.closest_hit(*args, width=b.width,
+                                                   count_exec=True))
+    plain_ms = time_ms(lambda: ci.closest_hit_plain(*args, count_exec=True), 1,
+                       warmup=0)
+    bound_ms, bound_by = bound(walk_bytes(args) + 8 * args[0].shape[0]
+                               + 4 * counts.shape[0],
+                               work["tests"] * PAIR_TEST_OPS)
+    print(f"closest_hit_exec at the {label} batch: counting build {ms:.4f} ms, "
+          f"production build {prod_ms:.4f} ms ({(ms / prod_ms - 1) * 100:+.1f}%; "
+          f"medians in turns, CUDA events), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {launches} launches on its path "
+          f"[{card}]")
+    return dict(batch=label, launches=launches, ms=ms, production_ms=prod_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                executed=int(executed.sum()), plain_visits=int(plain.sum()),
+                scheduled=int(counts.sum()), one_item_equal=equal), err
+
+
+def bench_path(r, r_huge, frame_ms, card):
+    """Phase 14's bench: the gates on the card, then measure at reduced
+    frame counts; its line must carry bench.py's keys (but est_mfu_useful
+    and vpu_tail_gops), finite and positive, and no error."""
+    smoke = dxrt_bench.kernel_smoke(device=r.device)
+    print(f"[bench] kernel_smoke on the card: {smoke}")
+    golden = dxrt_bench.golden_tile_gate(device=r.device)
+    print(f"[bench] golden_tile_gate: "
+          f"{'skipped (no Dragon asset)' if golden is None else golden}")
+    frames, whitted_frames, huge_frames = BENCH_FRAMES
+    line = dxrt_bench.measure(r, frames, whitted_frames, huge=lambda: r_huge,
+                              huge_frames=huge_frames)
+    print(f"[bench] measure at {frames} / {whitted_frames} / {huge_frames} "
+          f"frames: {json.dumps(line)}")
+    keys = ("metric", "value", "unit", "vs_baseline", "pairs_per_ray",
+            "est_mfu", "breakdown_ms", "whitted_1080p_ms", "mrays_1m_tris")
+    errors = [k for k in line if k.endswith("_error")]
+    require(not errors and all(k in line for k in keys),
+            f"the bench line lacks keys or reports errors: {sorted(line)}")
+    numbers = [line[k] for k in keys[4:] if k != "breakdown_ms"]
+    numbers += [line["value"], line["vs_baseline"], *line["breakdown_ms"].values()]
+    require(all(isinstance(v, float) and math.isfinite(v) and v > 0
+                for v in numbers), f"the bench line's numbers: {line}")
+    median = line["breakdown_ms"]["frame_ms"]
+    print(f"[bench] mode-5 median {median:.4f} ms against phase 5's "
+          f"{frame_ms:.4f} ms [{card}]")
+    require(1 / BENCH_SPREAD <= median / frame_ms <= BENCH_SPREAD,
+            f"the bench's mode-5 median {median} against {frame_ms}")
+    return line
+
+
+def tools_path(r, r_huge, frame_ms, card):
+    """Phase 14 on the 100k Renderer and the 1M one.  Returns the kernels
+    line's record of closest_hit_exec."""
+    t0 = time.perf_counter()
+    # Each batch's launches of the counting build on its path: exec_stats'
+    # run for the primaries, the Whitted render for the bounce.
+    ci.reset_launch_counts()
+    made = {}
+    for label, rr in (("100k 1080p primary", r), ("1M 1080p primary", r_huge)):
+        before = dict(ci.LAUNCHES)
+        exec_stats.run(rr, f"exec_stats: {label}")
+        made[label] = launched(before)["closest_hit_exec"]
+    torch.cuda.synchronize()
+    launches = dict(ci.LAUNCHES)
+    print(f"exec_stats launches: {launches}")
+    require(all(n > 0 for n in made.values()),
+            f"exec_stats did not launch closest_hit's counting build: {made}")
+
+    isect, occf, rays, shadows = capturing(r)
+    pos, rot = r.camera.snapshot()
+    before = dict(ci.LAUNCHES)
+    render_whitted(r.dscene, pos, rot, r.width, r.height,
+                   max_depth=WHITTED_DEPTH, intersect_fn=isect,
+                   occluder_factory=occf)
+    made["100k 1080p Whitted bounce"] = launched(before)["closest_hit_exec"]
+    bounce = exec_stats.ray_batch(r, *rays[1][:3])
+    del rays, shadows
+    batches, err = [], 0.0
+    for label, b in (("100k 1080p primary", exec_stats.primary_batch(r)),
+                     ("100k 1080p Whitted bounce", bounce),
+                     ("1M 1080p primary", exec_stats.primary_batch(r_huge))):
+        rec, e = count_build_batch(label, b, made[label], card)
+        batches.append(rec)
+        err = max(err, e)
+    del bounce
+
+    micro = kernel_micro.run(r)
+    require(micro["e_none_ms"] < micro["e_real_ms"] <= micro["e_all_ms"] * 1.05,
+            f"kernel_micro: {micro}")
+    cull = cull_stats.run(r)
+    require(cull[64]["pairs_per_ray"] < cull[768]["pairs_per_ray"],
+            "cull_stats: finer tiles list no fewer pairs")
+    whitted_bench.run(r, WHITTED_DEPTH, frames=2)
+    with tempfile.TemporaryDirectory() as out:
+        require(verify_drive.main(["--out", out]) == 0, "verify_drive failed")
+        for name in ("verify_cornell_bp_spp9.png", "verify_const_color.png"):
+            png = os.path.join(out, name)
+            require(os.path.exists(png), f"verify_drive wrote no {name}")
+            require(read_png(png).max() > 0, f"verify_drive's {name} is black")
+        print(f"verify_drive: wrote {sorted(os.listdir(out))}")
+    bench_path(r, r_huge, frame_ms, card)
+    print(f"measurement layer (phase 14): {time.perf_counter() - t0:.1f} s")
+    first = batches[0]
+    return dict(max_abs_err=err, library_ms=None, launches=launches["closest_hit_exec"],
+                **{key: first[key] for key in ("ms", "production_ms", "plain_ms",
+                                               "bound_ms", "bound_by")},
+                batches=batches)
+
+
+
 def precision_path(device, card):
     """Phase 8: the precision micro at the tool's own shapes."""
     pm.reset_launch_counts()
@@ -1658,7 +1856,10 @@ def main(argv=()) -> int:
     print(f"built {so.name} in {seconds:.2f} s")
     log = so.with_suffix(".log")
     if log.exists():
-        print(log.read_text().strip())
+        text = log.read_text().strip()
+        print(text)
+        print(f"closest_hit_kernel registers (rays a thread, count_exec): "
+              f"{closest_registers(text)}")
 
     if argv:  # phase 10 alone, for a host with a card a process
         n_tris, width, height = BIG_SCENE
@@ -1689,21 +1890,23 @@ def main(argv=()) -> int:
     multi_path(r, card).into(records)
     checks_path(r, card)
     oracles_path(r, card)
-    del r
     torch.cuda.empty_cache()
-    records["bin_clusters_super"], (huge, huge_err), huge_launches = huge_path(
-        device, card)
+    records["bin_clusters_super"], (huge, huge_err), huge_launches, r_huge = (
+        huge_path(device, card))
     closest["batches"].append(huge)
     closest["max_abs_err"] = max(closest["max_abs_err"], huge_err)
+    records["closest_hit_exec"] = tools_path(r, r_huge, frame_ms, card)
+    del r, r_huge
     torch.cuda.empty_cache()
     variants = precision_path(device, card)
     native_path(card)
 
     # Each kernel's launches are read from the path it serves: the debug
-    # path (bin_clusters, closest_hit), the Whitted path (any_hit) and the
-    # 1M path (bin_clusters_super).
+    # path (bin_clusters, closest_hit), the Whitted path (any_hit), the
+    # 1M path (bin_clusters_super) and exec_stats (closest_hit_exec).
     launches["any_hit"] = whitted_launches["any_hit"]
     launches["bin_clusters_super"] = huge_launches["bin_clusters_super"]
+    launches["closest_hit_exec"] = records["closest_hit_exec"].pop("launches")
     # The binning kernel's lines carry their first batch's numbers on top.
     for name in ("bin_clusters", "bin_clusters_super"):
         first = records[name]["batches"][0]
@@ -1720,6 +1923,7 @@ def main(argv=()) -> int:
     tpu = "directx_raytracer_tpu/bvh/pallas_intersect.py"
     sources = {"bin_clusters": ("csrc/bin_clusters.cu", f"{tpu}:307"),
                "closest_hit": ("csrc/closest_hit.cu", f"{tpu}:762"),
+               "closest_hit_exec": ("csrc/closest_hit.cu", f"{tpu}:788"),
                "any_hit": ("csrc/any_hit.cu", f"{tpu}:1001"),
                "bin_clusters_super": ("csrc/bin_clusters.cu", f"{tpu}:367"),
                "precision_micro": ("csrc/precision_micro.cu",

@@ -27,7 +27,9 @@ kernel ``_make_anyhit_kernel`` becomes ``any_hit`` (csrc/any_hit.cu), and
    farther than every ray's best.  The kernel cuts the lists into work
    items of ``CLOSEST_CHUNK`` positions that run in parallel and merge
    each ray's result as a packed (t, slot) key (``pack_keys``/
-   ``unpack_keys``) with a 64-bit atomicMin.
+   ``unpack_keys``) with a 64-bit atomicMin.  Its counting build
+   (``count_exec=True``, the TPU kernel's ``count_exec``) also returns
+   the list positions each tile executed.
 
 An occlusion query pads with parked rays (origin 1e30, dir 1, t_max 0),
 bounds each tile over its armed rays only, caps its binning at its largest
@@ -57,6 +59,7 @@ import os
 import shutil
 import subprocess
 import time
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -77,9 +80,10 @@ SUPER_MIN_C = 2048  # from this cluster count on, binning skips superblocks
 
 # Kernel launches per wrapper since the last reset (plain integers; the
 # plain versions never count).  "bin_clusters" counts the binning kernel's
-# dense-mode launches, "bin_clusters_super" its superblock-mode ones.
+# dense-mode launches, "bin_clusters_super" its superblock-mode ones,
+# "closest_hit_exec" the counting build of closest_hit (``count_exec``).
 LAUNCHES = {"bin_clusters": 0, "bin_clusters_super": 0, "closest_hit": 0,
-            "any_hit": 0}
+            "closest_hit_exec": 0, "any_hit": 0}
 
 
 def reset_launch_counts() -> None:
@@ -167,7 +171,7 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dxrt_bin_lists.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.dxrt_bin_lists.restype = i
-    lib.dxrt_closest_hit.argtypes = [p] * 10 + [i, i, i, i, i, f, i, p]
+    lib.dxrt_closest_hit.argtypes = [p] * 11 + [i, i, i, i, i, f, i, p]
     lib.dxrt_closest_hit.restype = i
     lib.dxrt_any_hit.argtypes = [p] * 10 + [i, i, i, i, f, i, p]
     lib.dxrt_any_hit.restype = i
@@ -479,17 +483,20 @@ def _woop_tests(w, o, d, sel):
 
 
 def closest_hit_plain(origins, dirs, init_t, wrows, visit, ventry, counts,
-                      tile_r: int, t_min=T_MIN, stats=None):
+                      tile_r: int, t_min=T_MIN, stats=None,
+                      count_exec: bool = False):
     """Plain torch version of ``closest_hit``: the same per-tile walk, one
     list position at a time for all live tiles at once (in chunks of
     ``PLAIN_CHUNK`` tiles to bound the (tiles, tile_r, K) temporaries).  Same
     float-op order as the kernel up to FMA contraction.  Returns best_t
-    (N,) f32 and best_slot (N,) i32.
+    (N,) f32 and best_slot (N,) i32, and with ``count_exec`` each tile's
+    visits (T,) i32: the list positions its walk executed.
 
     ``stats``, a dict, gets the work the walk's early-out leaves: the
     (tile, cluster) pairs visited under ``"visits"`` and the (ray,
     triangle) tests they need under ``"tests"``."""
     tiles = counts.shape[0]
+    visits = torch.zeros((tiles,), dtype=torch.int32, device=origins.device)
     k = wrows.shape[1]
     o = origins.reshape(tiles, tile_r, 3)
     d = dirs.reshape(tiles, tile_r, 3)
@@ -504,6 +511,7 @@ def closest_hit_plain(origins, dirs, init_t, wrows, visit, ventry, counts,
         idx = live.nonzero()[:, 0]
         if idx.numel() == 0:
             break
+        visits += live
         if stats is not None:
             stats["visits"] = stats.get("visits", 0) + idx.numel()
             stats["tests"] = stats.get("tests", 0) + idx.numel() * tile_r * k
@@ -517,6 +525,8 @@ def closest_hit_plain(origins, dirs, init_t, wrows, visit, ventry, counts,
             closer = (tk < bt) | ((tk == bt) & (slot < bs))
             best_t[sel] = torch.where(closer, tk, bt)
             best_slot[sel] = torch.where(closer, slot, bs)
+    if count_exec:
+        return best_t.reshape(-1), best_slot.reshape(-1), visits
     return best_t.reshape(-1), best_slot.reshape(-1)
 
 
@@ -540,11 +550,18 @@ def unpack_keys(keys: torch.Tensor):
 
 def closest_hit(origins, dirs, init_t, wrows, visit, ventry, counts,
                 tile_r: int, t_min=T_MIN, chunk: int = CLOSEST_CHUNK,
-                width=None):
+                width=None, count_exec: bool = False):
     """Closest hit of every ray over its tile's visit list: the
     ``closest_hit`` kernel for CUDA tensors, its plain version for CPU
     tensors.  Returns best_t (N,) f32 and best_slot (N,) i32 (-1: no hit
     closer than the seed).  Seeds must be >= 0 (``pack_keys``).
+
+    ``count_exec=True`` launches the kernel's counting build (counted as
+    "closest_hit_exec"; the same results) and also returns executed (T,)
+    i32, the list positions each tile's work items executed (passed the
+    early-out gate): between the plain walk's visits and the counts, equal
+    to the visits with one item a tile (``chunk`` >= ``width``).  On CPU
+    tensors it is the plain walk's visits.
 
     ``visit``/``ventry`` (T, stride) hold each tile's list in its first
     counts[t] positions (nothing past them is read); ``width``, at least
@@ -558,7 +575,7 @@ def closest_hit(origins, dirs, init_t, wrows, visit, ventry, counts,
     width) takes longer chunks."""
     if origins.device.type == "cpu":
         return closest_hit_plain(origins, dirs, init_t, wrows, visit, ventry,
-                                 counts, tile_r, t_min)
+                                 counts, tile_r, t_min, count_exec=count_exec)
     if not 1 <= tile_r <= MAX_TILE_R:
         raise ValueError(f"tile_r {tile_r} outside [1, {MAX_TILE_R}]")
     if chunk < 1:
@@ -578,6 +595,8 @@ def closest_hit(origins, dirs, init_t, wrows, visit, ventry, counts,
     _check("ventry", ventry, torch.float32, (tiles, stride), dev)
     _check("counts", counts, torch.int32, (tiles,), dev)
     keys = pack_keys(init_t)
+    executed = (torch.zeros((tiles,), dtype=torch.int32, device=dev)
+                if count_exec else None)
     if tiles:
         # The kernel's counting sort holds depths + 1 <= 24 K ints.
         chunk = max(chunk, -(-width // (24 * k - 1)))
@@ -592,9 +611,13 @@ def closest_hit(origins, dirs, init_t, wrows, visit, ventry, counts,
                 origins.data_ptr(), dirs.data_ptr(), wrows.data_ptr(),
                 visit.data_ptr(), ventry.data_ptr(), counts.data_ptr(),
                 order.data_ptr(), offs.data_ptr(), sched.data_ptr(),
-                keys.data_ptr(), tiles, depths, tile_r, stride, k, t_min,
-                chunk, stream)
-        _launched(lib, "closest_hit", err)
+                keys.data_ptr(),
+                None if executed is None else executed.data_ptr(), tiles,
+                depths, tile_r, stride, k, t_min, chunk, stream)
+        _launched(lib, "closest_hit_exec" if count_exec else "closest_hit",
+                  err)
+    if count_exec:
+        return (*unpack_keys(keys), executed)
     return unpack_keys(keys)
 
 
@@ -745,6 +768,40 @@ def pad_and_seed(origins, dirs, cs: ClusterSet, tile_r: int):
     return origins, dirs, scene_exit_seed(origins, dirs, cs, t_init)
 
 
+@dataclass
+class ClosestQuery:
+    """A closest-hit query's operands: rays padded to whole tiles with
+    their seeds (``pad_and_seed``), each tile's visit list from
+    ``bin_lists`` (``width`` the longest list)."""
+
+    origins: torch.Tensor
+    dirs: torch.Tensor
+    t_init: torch.Tensor
+    wrows: torch.Tensor
+    visit: torch.Tensor
+    ventry: torch.Tensor
+    counts: torch.Tensor
+    tile_r: int
+    width: int
+
+    def args(self):
+        """The positional operands of ``closest_hit``/``closest_hit_plain``."""
+        return (self.origins, self.dirs, self.t_init, self.wrows, self.visit,
+                self.ventry, self.counts, self.tile_r)
+
+
+def closest_query(origins, dirs, cs: ClusterSet, wrows, tile_r: int = TILE_R,
+                  plain: bool = False, srows=None) -> ClosestQuery:
+    """The closest-hit walk's operands for a ray batch: padded, seeded and
+    binned.  ``wrows``, ``srows`` and ``plain`` as in ``intersect_fused``."""
+    origins, dirs, t_init = pad_and_seed(origins, dirs, cs, tile_r)
+    visit, ventry, counts, width = bin_lists(
+        tile_params(origins, dirs, tile_r), cluster_rows(cs), srows,
+        plain=plain)
+    return ClosestQuery(origins, dirs, t_init, wrows, visit, ventry, counts,
+                        tile_r, width)
+
+
 def intersect_fused(origins, dirs, cs: ClusterSet, wrows, tile_r: int = TILE_R,
                     plain: bool = False, srows=None) -> Hit:
     """Closest hit via binning + the per-tile cluster walk.
@@ -760,13 +817,9 @@ def intersect_fused(origins, dirs, cs: ClusterSet, wrows, tile_r: int = TILE_R,
     if not cs.identity_order:
         raise ValueError("intersect_fused needs treelet-ordered clusters")
     n = origins.shape[0]
-    origins, dirs, t_init = pad_and_seed(origins, dirs, cs, tile_r)
-    visit, ventry, counts, width = bin_lists(
-        tile_params(origins, dirs, tile_r), cluster_rows(cs), srows,
-        plain=plain)
-    args = (origins, dirs, t_init, wrows, visit, ventry, counts, tile_r)
-    best_t, best_slot = (closest_hit_plain(*args) if plain
-                         else closest_hit(*args, width=width))
+    q = closest_query(origins, dirs, cs, wrows, tile_r, plain, srows)
+    best_t, best_slot = (closest_hit_plain(*q.args()) if plain
+                         else closest_hit(*q.args(), width=q.width))
     best_t, best_slot = best_t[:n], best_slot[:n]
     hit = best_slot >= 0
     zero = torch.zeros_like(best_t)

@@ -55,6 +55,15 @@
 // Within a CTA: 256 threads, each owning up to 3 rays (768-ray tiles) in
 // registers, held to 64 registers so that 4 CTAs fit on an SM.
 //
+// The counting build (kCountExec, chosen at compile time: the production
+// instantiation gains no instruction and no register) also writes, per
+// tile, the list positions its items executed, i.e. passed the gate
+// entry <= the tile's best t (the TPU kernel's count_exec build,
+// pallas_intersect.py:788-795): one atomicAdd by thread 0 per item into
+// executed (T,) i32, which the caller zeroes.  An item's gate is never
+// tighter than the serial walk's at the same position, so per tile the
+// plain walk's visits <= executed <= counts, equal with one item a tile.
+//
 // Built without --use_fast_math: t needs an exact divide, and denormals
 // must not be flushed.
 
@@ -74,13 +83,14 @@ __device__ __forceinline__ float key_time(unsigned long long key) {
   return __uint_as_float(static_cast<uint32_t>(key >> 32));
 }
 
-// Walk list positions [start, end) of one tile, merging into its keys.
-template <int kRaysPerThread>
+// Walk list positions [start, end) of one tile, merging into its keys (and
+// with kCountExec adding the positions executed to executed[tile]).
+template <int kRaysPerThread, bool kCountExec>
 __device__ __forceinline__ void walk_item(
     const float* origins, const float* dirs, const float4* wrows,
     const int* vlist, const float* elist, unsigned long long* keys,
-    float4* s_ring, float (*s_max)[kWarps], int tile, int start, int end,
-    int tile_r, int k, float t_min) {
+    int* executed, float4* s_ring, float (*s_max)[kWarps], int tile,
+    int start, int end, int tile_r, int k, float t_min) {
   const int tid = threadIdx.x;
   const int pieces = 3 * k;
   Ray ray[kRaysPerThread];
@@ -108,7 +118,8 @@ __device__ __forceinline__ void walk_item(
   dxrt::stage_cluster(s_ring, wrows + static_cast<size_t>(vlist[start]) * pieces,
                       pieces);
   int buf = 0;
-  for (int i = start; i < end; ++i, buf ^= 1) {
+  int i = start;
+  for (; i < end; ++i, buf ^= 1) {
     // The gate: the largest best t over the tile's rays, each the lower of
     // this item's own and the tile's merged key.
     float m = fminf(bt[0], kt[0]);
@@ -153,6 +164,9 @@ __device__ __forceinline__ void walk_item(
       }
     }
   }
+  // The break is block-uniform, so every thread holds the same i.
+  if constexpr (kCountExec)
+    if (tid == 0 && i > start) atomicAdd(executed + tile, i - start);
 
 #pragma unroll
   for (int j = 0; j < kRaysPerThread; ++j)
@@ -194,7 +208,7 @@ __device__ void build_schedule(const int* counts, int n_tiles, int n_depths,
   }
 }
 
-template <int kRaysPerThread>
+template <int kRaysPerThread, bool kCountExec>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 closest_hit_kernel(const float* __restrict__ origins,
                    const float* __restrict__ dirs,
@@ -202,7 +216,8 @@ closest_hit_kernel(const float* __restrict__ origins,
                    const int* __restrict__ visit,
                    const float* __restrict__ ventry,
                    const int* __restrict__ counts, int* order, int* offs,
-                   int* sched, unsigned long long* keys, int n_tiles,
+                   int* sched, unsigned long long* keys, int* executed,
+                   int n_tiles,
                    int n_depths, int tile_r, int list_len, int k, float t_min,
                    int chunk) {
   extern __shared__ float4 s_ring[];  // two buffers of 3 * k float4
@@ -240,20 +255,21 @@ closest_hit_kernel(const float* __restrict__ origins,
     while (__ldcg(offs + depth + 1) <= item) ++depth;
     const int tile = __ldcg(order + item - __ldcg(offs + depth));
     const int start = depth * chunk;
-    walk_item<kRaysPerThread>(
+    walk_item<kRaysPerThread, kCountExec>(
         origins, dirs, wrows, visit + static_cast<size_t>(tile) * list_len,
-        ventry + static_cast<size_t>(tile) * list_len, keys, s_ring, s_max,
-        tile, start, min(start + chunk, counts[tile]), tile_r, k, t_min);
+        ventry + static_cast<size_t>(tile) * list_len, keys, executed, s_ring,
+        s_max, tile, start, min(start + chunk, counts[tile]), tile_r, k,
+        t_min);
   }
 }
 
-template <int kRaysPerThread>
+template <int kRaysPerThread, bool kCountExec>
 int launch(const float* origins, const float* dirs, const float* wrows,
            const int* visit, const float* ventry, const int* counts,
            int* order, int* offs, int* sched, unsigned long long* keys,
-           int n_tiles, int n_depths, int tile_r, int list_len, int k,
-           float t_min, int chunk, cudaStream_t stream) {
-  const auto kernel = closest_hit_kernel<kRaysPerThread>;
+           int* executed, int n_tiles, int n_depths, int tile_r, int list_len,
+           int k, float t_min, int chunk, cudaStream_t stream) {
+  const auto kernel = closest_hit_kernel<kRaysPerThread, kCountExec>;
   const size_t smem = sizeof(float4) * 2 * 3 * k;
   // The CTAs that fit on the card at once, asked once per device and k:
   // every CTA of the grid is resident, so none waits for an undispatched
@@ -275,9 +291,37 @@ int launch(const float* origins, const float* dirs, const float* wrows,
       static_cast<int>(std::max(1LL, std::min<long long>(max_items, resident)));
   kernel<<<grid, kThreads, smem, stream>>>(
       origins, dirs, reinterpret_cast<const float4*>(wrows), visit, ventry,
-      counts, order, offs, sched, keys, n_tiles, n_depths, tile_r, list_len,
-      k, t_min, chunk);
+      counts, order, offs, sched, keys, executed, n_tiles, n_depths, tile_r,
+      list_len, k, t_min, chunk);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kCountExec>
+int dispatch(const float* origins, const float* dirs, const float* wrows,
+             const int* visit, const float* ventry, const int* counts,
+             int* order, int* offs, int* sched, unsigned long long* keys,
+             int* executed, int n_tiles, int n_depths, int tile_r,
+             int list_len, int k, float t_min, int chunk,
+             cudaStream_t stream) {
+  switch ((tile_r + kThreads - 1) / kThreads) {
+    case 1:
+      return launch<1, kCountExec>(origins, dirs, wrows, visit, ventry,
+                                   counts, order, offs, sched, keys, executed,
+                                   n_tiles, n_depths, tile_r, list_len, k,
+                                   t_min, chunk, stream);
+    case 2:
+      return launch<2, kCountExec>(origins, dirs, wrows, visit, ventry,
+                                   counts, order, offs, sched, keys, executed,
+                                   n_tiles, n_depths, tile_r, list_len, k,
+                                   t_min, chunk, stream);
+    case 3:
+      return launch<3, kCountExec>(origins, dirs, wrows, visit, ventry,
+                                   counts, order, offs, sched, keys, executed,
+                                   n_tiles, n_depths, tile_r, list_len, k,
+                                   t_min, chunk, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -286,31 +330,25 @@ int launch(const float* origins, const float* dirs, const float* wrows,
 // ceil(list_len / chunk); CTA 0's counting sort takes n_depths + 1 ints of
 // the ring's shared memory (at most 24 k); two buffers of a cluster's
 // 3 * k float4 must fit the default 48 KB (k <= 256).  order (T,) and offs
-// (n_depths + 1,) i32 are scratch; sched is two zeroed ints.
+// (n_depths + 1,) i32 are scratch; sched is two zeroed ints.  executed:
+// nullptr for the production build, else (T,) zeroed i32 for the counting
+// build.
 extern "C" int dxrt_closest_hit(const float* origins, const float* dirs,
                                 const float* wrows, const int* visit,
                                 const float* ventry, const int* counts,
                                 int* order, int* offs, int* sched,
-                                unsigned long long* keys, int n_tiles,
-                                int n_depths, int tile_r, int list_len, int k,
-                                float t_min, int chunk, cudaStream_t stream) {
+                                unsigned long long* keys, int* executed,
+                                int n_tiles, int n_depths, int tile_r,
+                                int list_len, int k, float t_min, int chunk,
+                                cudaStream_t stream) {
   if (chunk < 1 || k < 1 || k > 256 || n_depths < 0 ||
       n_depths + 1 > 24 * k)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch ((tile_r + kThreads - 1) / kThreads) {
-    case 1:
-      return launch<1>(origins, dirs, wrows, visit, ventry, counts, order,
-                       offs, sched, keys, n_tiles, n_depths, tile_r, list_len,
-                       k, t_min, chunk, stream);
-    case 2:
-      return launch<2>(origins, dirs, wrows, visit, ventry, counts, order,
-                       offs, sched, keys, n_tiles, n_depths, tile_r, list_len,
-                       k, t_min, chunk, stream);
-    case 3:
-      return launch<3>(origins, dirs, wrows, visit, ventry, counts, order,
-                       offs, sched, keys, n_tiles, n_depths, tile_r, list_len,
-                       k, t_min, chunk, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (executed == nullptr)
+    return dispatch<false>(origins, dirs, wrows, visit, ventry, counts, order,
+                           offs, sched, keys, nullptr, n_tiles, n_depths,
+                           tile_r, list_len, k, t_min, chunk, stream);
+  return dispatch<true>(origins, dirs, wrows, visit, ventry, counts, order,
+                        offs, sched, keys, executed, n_tiles, n_depths,
+                        tile_r, list_len, k, t_min, chunk, stream);
 }

@@ -232,6 +232,37 @@ def test_closest_kernel_split_lists_match_plain(x, tile_r, chunk):
     closest_vs_plain(x, tile_r, chunk)
 
 
+@pytest.mark.parametrize("chunk", [ci.CLOSEST_CHUNK, 1, None])
+@pytest.mark.parametrize("tile_r", [768, 256])
+def test_closest_count_exec_build(x, tile_r, chunk):
+    """The counting build: best t and slot bit-equal to the production
+    build's, per tile plain visits <= executed <= counts, and with one work
+    item a tile (chunk None: the longest list) executed equal to the plain
+    walk's visits on >= 99.9% of tiles (FMA contraction may flip a gate on
+    a knife-edge entry); launches counted as closest_hit_exec."""
+    n = x["o"].shape[0] // tile_r * tile_r
+    o, d, t_init = x["o"][:n], x["d"][:n], x["t_init"][:n]
+    visit, ventry, counts, width = ci.bin_lists(ci.tile_params(o, d, tile_r),
+                                                x["cb"])
+    args = (o, d, t_init, x["bvh"].wrows, visit, ventry, counts, tile_r)
+    chunk = max(width, 1) if chunk is None else chunk
+    before = dict(ci.LAUNCHES)
+    bt, bs = ci.closest_hit(*args, chunk=chunk, width=width)
+    bt_c, bs_c, executed = ci.closest_hit(*args, chunk=chunk, width=width,
+                                          count_exec=True)
+    _, _, plain = ci.closest_hit_plain(*args, count_exec=True)
+    torch.cuda.synchronize()
+    assert ci.LAUNCHES["closest_hit"] == before["closest_hit"] + 1
+    assert ci.LAUNCHES["closest_hit_exec"] == before["closest_hit_exec"] + 1
+    assert torch.equal(bt.view(torch.int32), bt_c.view(torch.int32))
+    assert torch.equal(bs, bs_c)
+    assert executed.dtype == torch.int32 and executed.shape == counts.shape
+    assert bool((plain <= executed).all()) and bool((executed <= counts).all())
+    assert int(plain.sum()) > 0
+    if chunk >= width:
+        assert (executed == plain).float().mean() >= 0.999
+
+
 def tie_tile(order, device, init_t=100.0):
     """One 32-ray tile over two clusters that hold the same triangle, at
     slots 5 (cluster 0) and K + 3 (cluster 1), visited in ``order``."""
