@@ -176,6 +176,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import dataclasses
+from collections import Counter
 
 from directx_raytracer_tpu_torch import testscenes
 from directx_raytracer_tpu_torch.bvh import (TILE_R, build_bvh, build_lbvh,
@@ -209,7 +210,7 @@ from directx_raytracer_tpu_torch.tools import (cull_stats, exec_stats,
                                                kernel_micro, verify_drive,
                                                whitted_bench)
 from directx_raytracer_tpu_torch.tools import precision_micro as pm
-from directx_raytracer_tpu_torch.utils import checks
+from directx_raytracer_tpu_torch.utils import checks, trace
 from directx_raytracer_tpu_torch.utils.image import read_png, to_u8, write_png
 from directx_raytracer_tpu_torch.viewer.app import main as viewer_main
 
@@ -647,12 +648,12 @@ def main_path(device):
     """Phase 4: the port's main path through its user entry points."""
     n_tris, width, height = BIG_SCENE
     scene = testscenes.bench_scene(n_tris, width, height)
-    ci.reset_launch_counts()
+    trace.reset()
     r = Renderer(scene, width, height, device=device)
     frames = [r.render_frame(mode) for mode in range(7)]
     torch.cuda.synchronize()
-    launches = dict(ci.LAUNCHES)
-    print(f"main path launches: {launches}")
+    launches = trace.launches()
+    print(f"main path launches: {dict(launches)}")
     for name in ("bin_clusters", "closest_hit"):
         require(launches[name] > 0, f"{name} was not launched on the main path")
     require(r.bvh is not None, "main path did not build a BVH")
@@ -767,9 +768,11 @@ def small_shadow_batch(device):
     return any_hit_args((p + d * 1e-3).contiguous(), d, t_max, x["bvh"])
 
 
-def launched(before: dict) -> dict:
-    """The kernel launches made since ``before = dict(ci.LAUNCHES)``."""
-    return {k: v - before[k] for k, v in ci.LAUNCHES.items()}
+def launched(before: Counter) -> Counter:
+    """The kernel launches made since ``before = trace.launches()``."""
+    made = trace.launches()
+    made.subtract(before)
+    return made
 
 
 def capturing(r):
@@ -780,7 +783,7 @@ def capturing(r):
     rays, shadows = [], []
 
     def isect(o, d, geo, tile_r=None):
-        before = dict(ci.LAUNCHES)
+        before = trace.launches()
         hit = r.intersect_fn(o, d, geo, tile_r=tile_r)
         rays.append((o.clone(), d.clone(), tile_r or TILE_R, launched(before)))
         return hit
@@ -789,7 +792,7 @@ def capturing(r):
         occluded = r.occluder_factory(geo)
 
         def occ(o, d, t_max):
-            before = dict(ci.LAUNCHES)
+            before = trace.launches()
             blocked = occluded(o, d, t_max)
             shadows.append((o.clone(), d.clone(), t_max.clone(),
                             launched(before)))
@@ -877,11 +880,11 @@ def whitted_path(r, card):
     held.rays("100k 1080p Whitted bounce", rays[1], r, card)
     del rays, shadows
 
-    ci.reset_launch_counts()
+    trace.reset()
     img, stats = r.render_whitted_frame(max_depth=WHITTED_DEPTH)
     torch.cuda.synchronize()
-    launches = dict(ci.LAUNCHES)
-    print(f"whitted path launches: {launches}")
+    launches = trace.launches()
+    print(f"whitted path launches: {dict(launches)}")
     for name in ("bin_clusters", "closest_hit", "any_hit"):
         require(launches[name] > 0, f"{name} was not launched on the Whitted path")
     alive, dropped = stats["alive"].tolist(), stats["dropped"].tolist()
@@ -945,7 +948,7 @@ def pt_path(r, card):
     passes, kept = [], {}
 
     def capturing_isect(o, d, geo, tile_r=None):
-        before = dict(ci.LAUNCHES)
+        before = trace.launches()
         hit = r.intersect_fn(o, d, geo, tile_r=tile_r)
         made = launched(before)
         tr = tile_r or TILE_R
@@ -962,7 +965,7 @@ def pt_path(r, card):
         occluded = r.occluder_factory(geo)
 
         def occ(o, d, t_max):
-            before = dict(ci.LAUNCHES)
+            before = trace.launches()
             blocked = occluded(o, d, t_max)
             made = launched(before)
             counts = ci.anyhit_schedule(o, d, t_max, r.bvh.clusters,
@@ -1021,13 +1024,13 @@ def pt_path(r, card):
     tmp = tempfile.gettempdir()
     png = os.path.join(tmp, "chip_smoke_pt.png")
     state = os.path.join(tmp, "chip_smoke_pt.npz")
-    ci.reset_launch_counts()
+    trace.reset()
     viewer_main(["pathtrace", "--builtin", "bench_scene", "--width", str(width),
                  "--height", str(height), "--depth", str(PT_DEPTH),
                  "--samples", str(PT_SAMPLES), "--state", state, "-o", png])
     torch.cuda.synchronize()
-    launches = dict(ci.LAUNCHES)
-    print(f"PT path launches ({PT_SAMPLES} samples): {launches}")
+    launches = trace.launches()
+    print(f"PT path launches ({PT_SAMPLES} samples): {dict(launches)}")
     for name in ("bin_clusters", "closest_hit", "any_hit"):
         require(launches[name] > 0, f"{name} was not launched on the PT path")
     resumed = PathTracer(r.dscene, width, height, max_depth=PT_DEPTH,
@@ -1110,11 +1113,11 @@ def huge_path(device, card):
     record = dict(max_abs_err=bin_err, library_ms=None, batches=[rec])
     overflow_check(device, card)
 
-    ci.reset_launch_counts()
+    trace.reset()
     img = r.render_frame(5)
     torch.cuda.synchronize()
-    launches = dict(ci.LAUNCHES)
-    print(f"1M path launches: {launches}")
+    launches = trace.launches()
+    print(f"1M path launches: {dict(launches)}")
     require(launches["bin_clusters_super"] > 0,
             "bin_clusters_super was not launched on the 1M path")
     require(launches["closest_hit"] > 0, "closest_hit was not launched on the 1M path")
@@ -1191,13 +1194,13 @@ def _multi_rank(rank, world, n_tris, width, height):
     fns = dict(intersect_fn=r.intersect_fn, occluder_factory=r.occluder_factory)
 
     def timed(fn):
-        ci.reset_launch_counts()
+        trace.reset()
         torch.cuda.synchronize()
         dist.barrier()  # the ranks start together: none times its wait
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, dict(ci.LAUNCHES)
+        return out, time.perf_counter() - t0, trace.launches()
 
     def whitted():
         return render_whitted_multichip(r.dscene, pos, rot, width, height, mesh,
@@ -1701,21 +1704,21 @@ def tools_path(r, r_huge, frame_ms, card):
     t0 = time.perf_counter()
     # Each batch's launches of the counting build on its path: exec_stats'
     # run for the primaries, the Whitted render for the bounce.
-    ci.reset_launch_counts()
+    trace.reset()
     made = {}
     for label, rr in (("100k 1080p primary", r), ("1M 1080p primary", r_huge)):
-        before = dict(ci.LAUNCHES)
+        before = trace.launches()
         exec_stats.run(rr, f"exec_stats: {label}")
         made[label] = launched(before)["closest_hit_exec"]
     torch.cuda.synchronize()
-    launches = dict(ci.LAUNCHES)
-    print(f"exec_stats launches: {launches}")
+    launches = trace.launches()
+    print(f"exec_stats launches: {dict(launches)}")
     require(all(n > 0 for n in made.values()),
             f"exec_stats did not launch closest_hit's counting build: {made}")
 
     isect, occf, rays, shadows = capturing(r)
     pos, rot = r.camera.snapshot()
-    before = dict(ci.LAUNCHES)
+    before = trace.launches()
     render_whitted(r.dscene, pos, rot, r.width, r.height,
                    max_depth=WHITTED_DEPTH, intersect_fn=isect,
                    occluder_factory=occf)
@@ -1757,11 +1760,11 @@ def tools_path(r, r_huge, frame_ms, card):
 
 def precision_path(device, card):
     """Phase 8: the precision micro at the tool's own shapes."""
-    pm.reset_launch_counts()
+    trace.reset()
     require(pm.main([]) == 0, "the precision micro's entry point failed")
     torch.cuda.synchronize()
-    launches = dict(pm.LAUNCHES)
-    print(f"precision micro launches: {launches}")
+    launches = {v: trace.launches()[f"precision_micro.{v}"] for v in pm.VARIANTS}
+    print(f"precision micro launches: {dict(launches)}")
     for variant in pm.VARIANTS:
         require(launches[variant] > 0,
                 f"precision_micro ({variant}) was not launched by its tool")

@@ -45,9 +45,11 @@ tensors it launches its kernel or raises.
 
 The kernels are compiled with nvcc on first use, from the sources in
 ``csrc/``, into ``_build/`` next to this package, and bound with ctypes.
-Each launch is counted in ``LAUNCHES``.  The same library carries the
-precision micro's kernel (``tools/precision_micro.py`` of this package
-wraps and counts it).
+Each launch is counted in ``utils.trace.COUNTS`` under
+``launch.<kernel>``, each host sync of a query under ``sync.<site>``, and
+the queries' parts are ``dxrt.query.*`` and ``dxrt.occluder.*`` spans
+(``utils/trace.py``).  The same library carries the precision micro's
+kernel (``tools/precision_micro.py`` of this package wraps and counts it).
 """
 
 from __future__ import annotations
@@ -66,6 +68,8 @@ import torch
 
 from ..ops.intersect import Hit
 from ..ops.rays import T_MAX, T_MIN
+from ..utils import trace
+from ..utils.trace import span
 from .clustered import ClusterSet
 
 TILE_R = 256  # default rays per tile (one 8x32 pixel tile)
@@ -77,18 +81,6 @@ PLAIN_CHUNK = 128  # tiles per step of the plain walks (~50 MB temporaries)
 BIG = 1e30
 SUPER_BLOCK = 128  # clusters per superblock of the superblock binner
 SUPER_MIN_C = 2048  # from this cluster count on, binning skips superblocks
-
-# Kernel launches per wrapper since the last reset (plain integers; the
-# plain versions never count).  "bin_clusters" counts the binning kernel's
-# dense-mode launches, "bin_clusters_super" its superblock-mode ones,
-# "closest_hit_exec" the counting build of closest_hit (``count_exec``).
-LAUNCHES = {"bin_clusters": 0, "bin_clusters_super": 0, "closest_hit": 0,
-            "closest_hit_exec": 0, "any_hit": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -201,8 +193,12 @@ def check_launch(lib: ctypes.CDLL, kernel: str, err: int) -> None:
 
 
 def _launched(lib: ctypes.CDLL, kernel: str, err: int) -> None:
+    """Raise on a launch error, else count the launch: ``launch.<kernel>``
+    ("bin_clusters" the binning kernel's dense mode, "bin_clusters_super"
+    its superblock mode, "closest_hit_exec" closest_hit's counting build);
+    the plain versions never count."""
     check_launch(lib, kernel, err)
-    LAUNCHES[kernel] += 1
+    trace.count("launch." + kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -375,8 +371,8 @@ def launch_bin_lists(tp: torch.Tensor, cb: torch.Tensor, sb=None,
     a host sync.  Returns visit (T, C) i32, ventry (T, C) f32 and meta
     (T + 1,) i32: row t of the lists holds its first meta[t] positions, near
     to far (the rest is never written); meta[T] is the largest count.
-    Counted in ``LAUNCHES`` under "bin_clusters" (dense) or
-    "bin_clusters_super"."""
+    Counted under ``launch.bin_clusters`` (dense) or
+    ``launch.bin_clusters_super``."""
     dev = tp.device
     tiles, c = tp.shape[0], cb.shape[1]
     _check("tp", tp, torch.float32, (tiles, 16), dev)
@@ -410,8 +406,9 @@ def bin_lists(tp: torch.Tensor, cb: torch.Tensor, sb=None, plain: bool = False,
     """Each tile's visit list: the clusters its params ``tp`` (T, 16)
     overlap among ``cb`` (8, C), near to far, ties to the lower id.
     Returns visit and ventry (T, stride) i32/f32, counts (T,) i32 and the
-    width, the largest count (reading it is the query's one host sync);
-    row t's first counts[t] positions are its list.  The fused kernel for
+    width, the largest count (reading it is the query's one host sync,
+    ``sync.bin_width``, whichever version runs); row t's first counts[t]
+    positions are its list.  The fused kernel for
     CUDA tensors (stride C, the rest of each row unwritten), its plain
     version ``bin_lists_plain`` for CPU tensors or with ``plain=True``
     (stride = width).
@@ -428,6 +425,7 @@ def bin_lists(tp: torch.Tensor, cb: torch.Tensor, sb=None, plain: bool = False,
         sb = super_rows(cb, block) if sb is None else sb
     else:
         raise ValueError(f"mode {mode!r}: expected 'dense' or 'super'")
+    trace.count("sync.bin_width")
     if plain or tp.device.type == "cpu":
         return bin_lists_plain(tp, cb, sb, block)
     visit, ventry, meta = launch_bin_lists(tp, cb, sb, block)
@@ -669,8 +667,9 @@ def anyhit_work_items(counts: torch.Tensor, chunk: int = ANYHIT_CHUNK):
     """The any_hit kernel's work items: each tile's list positions
     [0, count) cut into runs of ``chunk``.  Returns (tile id, first
     position) as (W,) i32 each, W = sum(ceil(count / chunk)); reading W is
-    one host sync."""
+    one host sync (``sync.anyhit_items``)."""
     chunks = (counts.long() + chunk - 1) // chunk
+    trace.count("sync.anyhit_items")
     n_items = int(chunks.sum())
     dev = counts.device
     work_tile = torch.repeat_interleave(
@@ -709,7 +708,8 @@ def any_hit(origins, dirs, t_max, wrows, visit, ventry, counts,
     _check("ventry", ventry, torch.float32, (tiles, stride), dev)
     _check("counts", counts, torch.int32, (tiles,), dev)
     blocked = torch.zeros((n,), dtype=torch.uint8, device=dev)
-    work_tile, work_start = anyhit_work_items(counts)
+    with span("dxrt.occluder.items"):
+        work_tile, work_start = anyhit_work_items(counts)
     n_items = work_tile.shape[0]
     if n_items:
         lib = _lib()
@@ -793,11 +793,14 @@ class ClosestQuery:
 def closest_query(origins, dirs, cs: ClusterSet, wrows, tile_r: int = TILE_R,
                   plain: bool = False, srows=None) -> ClosestQuery:
     """The closest-hit walk's operands for a ray batch: padded, seeded and
-    binned.  ``wrows``, ``srows`` and ``plain`` as in ``intersect_fused``."""
-    origins, dirs, t_init = pad_and_seed(origins, dirs, cs, tile_r)
-    visit, ventry, counts, width = bin_lists(
-        tile_params(origins, dirs, tile_r), cluster_rows(cs), srows,
-        plain=plain)
+    binned.  ``wrows``, ``srows`` and ``plain`` as in ``intersect_fused``.
+    Spans ``dxrt.query.stage`` (padding, seeds, tile and cluster rows) and
+    ``dxrt.query.bin`` (the lists and their width's read)."""
+    with span("dxrt.query.stage"):
+        origins, dirs, t_init = pad_and_seed(origins, dirs, cs, tile_r)
+        tp, cb = tile_params(origins, dirs, tile_r), cluster_rows(cs)
+    with span("dxrt.query.bin"):
+        visit, ventry, counts, width = bin_lists(tp, cb, srows, plain=plain)
     return ClosestQuery(origins, dirs, t_init, wrows, visit, ventry, counts,
                         tile_r, width)
 
@@ -812,19 +815,21 @@ def intersect_fused(origins, dirs, cs: ClusterSet, wrows, tile_r: int = TILE_R,
     slot (== triangle id: the geometry is treelet-ordered) and u = v = 0;
     ``ops.intersect.hit_record`` re-evaluates t/u/v and fetches the ids.
     ``plain=True`` runs the kernels' plain versions on any device (the
-    reference the kernels are checked against on the card).
+    reference the kernels are checked against on the card).  The walk
+    and the unpadding are the span ``dxrt.query.walk``.
     """
     if not cs.identity_order:
         raise ValueError("intersect_fused needs treelet-ordered clusters")
     n = origins.shape[0]
     q = closest_query(origins, dirs, cs, wrows, tile_r, plain, srows)
-    best_t, best_slot = (closest_hit_plain(*q.args()) if plain
-                         else closest_hit(*q.args(), width=q.width))
-    best_t, best_slot = best_t[:n], best_slot[:n]
-    hit = best_slot >= 0
-    zero = torch.zeros_like(best_t)
-    return Hit(t=torch.where(hit, best_t, float("inf")), tri=best_slot,
-               u=zero, v=zero)
+    with span("dxrt.query.walk"):
+        best_t, best_slot = (closest_hit_plain(*q.args()) if plain
+                             else closest_hit(*q.args(), width=q.width))
+        best_t, best_slot = best_t[:n], best_slot[:n]
+        hit = best_slot >= 0
+        zero = torch.zeros_like(best_t)
+        return Hit(t=torch.where(hit, best_t, float("inf")), tri=best_slot,
+                   u=zero, v=zero)
 
 
 def pad_and_cap(origins, dirs, t_max, tile_r: int):
@@ -854,11 +859,16 @@ def anyhit_schedule(origins, dirs, t_max, cs: ClusterSet, tile_r: int = TILE_R,
     Bounding over armed rays is exact (a disarmed ray is never blocked) and
     matters: a Morton-sorted shadow batch has one tile per light where the
     armed rays meet the parked tail (origin 1e30), whose all-lane box would
-    bin every cluster and leave one CTA walking them all."""
-    origins, dirs, t_max, t_cap = pad_and_cap(origins, dirs, t_max, tile_r)
-    visit, ventry, counts, _ = bin_lists(
-        tile_params(origins, dirs, tile_r, t_cap=t_cap, live=t_max > T_MIN),
-        cluster_rows(cs), srows, plain=plain)
+    bin every cluster and leave one CTA walking them all.
+
+    Spans ``dxrt.occluder.stage`` (padding, caps, tile and cluster rows)
+    and ``dxrt.occluder.bin``."""
+    with span("dxrt.occluder.stage"):
+        origins, dirs, t_max, t_cap = pad_and_cap(origins, dirs, t_max, tile_r)
+        tp = tile_params(origins, dirs, tile_r, t_cap=t_cap, live=t_max > T_MIN)
+        cb = cluster_rows(cs)
+    with span("dxrt.occluder.bin"):
+        visit, ventry, counts, _ = bin_lists(tp, cb, srows, plain=plain)
     return origins, dirs, t_max, visit, ventry, counts
 
 
@@ -866,10 +876,12 @@ def occluded_fused(origins, dirs, cs: ClusterSet, wrows, t_max,
                    tile_r: int = TILE_R, plain: bool = False,
                    srows=None) -> torch.Tensor:
     """Any hit: (N,) bool, True where a triangle lies in [T_MIN, t_max[i])
-    along ray i: ``anyhit_schedule``, then the any-hit walk.  ``wrows``,
-    ``srows`` and ``plain`` as in ``intersect_fused``."""
+    along ray i: ``anyhit_schedule``, then the any-hit walk (the span
+    ``dxrt.occluder.walk``, with the kernel path's ``dxrt.occluder.items``
+    inside).  ``wrows``, ``srows`` and ``plain`` as in ``intersect_fused``."""
     o, d, tm, visit, ventry, counts = anyhit_schedule(
         origins, dirs, t_max, cs, tile_r, plain, srows)
-    blocked = (any_hit_plain if plain else any_hit)(
-        o, d, tm, wrows, visit, ventry, counts, tile_r)
-    return blocked[:origins.shape[0]]
+    with span("dxrt.occluder.walk"):
+        blocked = (any_hit_plain if plain else any_hit)(
+            o, d, tm, wrows, visit, ventry, counts, tile_r)
+        return blocked[:origins.shape[0]]

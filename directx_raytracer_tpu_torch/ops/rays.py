@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
+
 T_MIN = 0.001
 T_MAX = 10000.0
 
@@ -74,14 +76,16 @@ def _world_dirs(x, y, rotation):
 
 
 def _camera(position, rotation, device):
-    pos = torch.as_tensor(position, dtype=torch.float32).to(device)
-    rot = torch.as_tensor(rotation, dtype=torch.float32).to(device)
-    return pos, rot
+    """The camera on ``device``: two host syncs (``sync.camera``) where it
+    is a host value."""
+    return (trace.upload(position, device, "camera"),
+            trace.upload(rotation, device, "camera"))
 
 
 def _offset(offset, device):
-    """The sub-pixel offset as f32, rounded as the JAX package rounds it."""
-    return torch.as_tensor(offset, dtype=torch.float32).to(device)
+    """The sub-pixel offset as f32, rounded as the JAX package rounds it
+    (``sync.offset`` where it is a host value)."""
+    return trace.upload(offset, device, "offset")
 
 
 def generate_rays_tiled(position, rotation, width: int, height: int,

@@ -35,6 +35,7 @@ import torch
 from ..models.material import MaterialType
 from ..models.scene import DeviceScene, TextureTable
 from ..models.texture import TextureType
+from ..utils.trace import span
 from ..utils.vecmath import normalize
 
 FOUR_PI = 4.0 * np.pi
@@ -185,6 +186,10 @@ def direct_lighting(points, normals, lights, occluder_fn, mask=None,
         clusters), and disarmed rays, sorted last and parked (origin 1e30,
         direction 1), fill tiles that bin nothing.
 
+    The shadow batch's sort, its rays and the occluder call, and the
+    unsort are ``dxrt.occluder`` spans; the lighting between them is the
+    caller's (``dxrt.shade``).
+
     Returns (N, 1) un-albedo'd irradiance factor, or a tuple
     ((N, 1) diffuse, (N, 1) specular) when ``view`` is given.
     """
@@ -199,21 +204,24 @@ def direct_lighting(points, normals, lights, occluder_fn, mask=None,
 
     unsort = None
     if sort_bounds is not None and occluder_fn is not None:
-        armed = (mask if mask is not None
-                 else torch.ones((n,), dtype=torch.bool, device=points.device))
-        armed = (armed & torch.isfinite(points).all(dim=-1)
-                 & torch.isfinite(normals).all(dim=-1))
-        key = _morton_key_points(points, sort_bounds[0], sort_bounds[1], armed)
-        perm = torch.sort(key, stable=True).indices
-        cols = [points, normals, armed.to(torch.float32)[:, None]]
-        if view is not None:
-            cols += [view, shininess[:, None]]
-        packed = torch.cat(cols, dim=1)[perm]  # one wide gather
-        points, normals = packed[:, 0:3], packed[:, 3:6]
-        mask = packed[:, 6] > 0.5
-        if view is not None:
-            view, shininess = packed[:, 7:10], packed[:, 10]
-        unsort = perm
+        with span("dxrt.occluder"):
+            armed = (mask if mask is not None
+                     else torch.ones((n,), dtype=torch.bool,
+                                     device=points.device))
+            armed = (armed & torch.isfinite(points).all(dim=-1)
+                     & torch.isfinite(normals).all(dim=-1))
+            key = _morton_key_points(points, sort_bounds[0], sort_bounds[1],
+                                     armed)
+            perm = torch.sort(key, stable=True).indices
+            cols = [points, normals, armed.to(torch.float32)[:, None]]
+            if view is not None:
+                cols += [view, shininess[:, None]]
+            packed = torch.cat(cols, dim=1)[perm]  # one wide gather
+            points, normals = packed[:, 0:3], packed[:, 3:6]
+            mask = packed[:, 6] > 0.5
+            if view is not None:
+                view, shininess = packed[:, 7:10], packed[:, 10]
+            unsort = perm
 
     # Componentwise (L, N) math throughout.
     px, py, pz = points[:, 0], points[:, 1], points[:, 2]
@@ -242,42 +250,43 @@ def direct_lighting(points, normals, lights, occluder_fn, mask=None,
         spec = irrad * torch.where(cos > 0.0, ndoth ** shininess[None, :], 0.0)
 
     if occluder_fn is not None:
-        sox = px + nxc * SHADOW_BIAS  # (N,) each
-        soy = py + nyc * SHADOW_BIAS
-        soz = pz + nzc * SHADOW_BIAS
-        # Parked/degenerate wavefront slots carry non-finite points; give
-        # them a strictly-positive far ray so their tiles bin to nothing.
-        # Masked-but-live rays keep their true geometry — replacing it
-        # would blow up the conservative box of any tile mixing masked and
-        # unmasked rays — and are disarmed via t_max = 0 instead.
-        finite = (torch.isfinite(sox) & torch.isfinite(soy)
-                  & torch.isfinite(soz))
-        live = finite
-        if unsort is not None and mask is not None:
-            # Sorted mode: disarmed rays are segregated to the tail, so
-            # parking them cannot blow up an armed tile's box.
-            live = finite & mask
-        sox = torch.where(live, sox, 1e30)
-        soy = torch.where(live, soy, 1e30)
-        soz = torch.where(live, soz, 1e30)
-        ok_l = (live[None, :] & torch.isfinite(lxd) & torch.isfinite(lyd)
-                & torch.isfinite(lzd))
-        # A back-facing lane's diffuse and specular terms are zero whatever
-        # the occlusion, so disarming it (t_max = 0) is exact and costs the
-        # kernel nothing.
-        t_shadow = torch.where(cos > 0.0, dist - 2.0 * SHADOW_BIAS, 0.0)
-        if mask is not None:
-            t_shadow = torch.where((mask & finite)[None, :], t_shadow, 0.0)
-        origins = torch.stack([sox.expand(n_l, n), soy.expand(n_l, n),
-                               soz.expand(n_l, n)], dim=-1)
-        dirs_occ = torch.stack([torch.where(ok_l, lxd, 1.0),
-                                torch.where(ok_l, lyd, 1.0),
-                                torch.where(ok_l, lzd, 1.0)], dim=-1)
-        blocked = occluder_fn(origins.reshape(-1, 3), dirs_occ.reshape(-1, 3),
-                              t_shadow.reshape(-1)).reshape(n_l, n)
-        contrib = torch.where(blocked, 0.0, contrib)
-        if spec is not None:
-            spec = torch.where(blocked, 0.0, spec)
+        with span("dxrt.occluder"):
+            sox = px + nxc * SHADOW_BIAS  # (N,) each
+            soy = py + nyc * SHADOW_BIAS
+            soz = pz + nzc * SHADOW_BIAS
+            # Parked/degenerate wavefront slots carry non-finite points; give
+            # them a strictly-positive far ray so their tiles bin to nothing.
+            # Masked-but-live rays keep their true geometry — replacing it
+            # would blow up the conservative box of any tile mixing masked and
+            # unmasked rays — and are disarmed via t_max = 0 instead.
+            finite = (torch.isfinite(sox) & torch.isfinite(soy)
+                      & torch.isfinite(soz))
+            live = finite
+            if unsort is not None and mask is not None:
+                # Sorted mode: disarmed rays are segregated to the tail, so
+                # parking them cannot blow up an armed tile's box.
+                live = finite & mask
+            sox = torch.where(live, sox, 1e30)
+            soy = torch.where(live, soy, 1e30)
+            soz = torch.where(live, soz, 1e30)
+            ok_l = (live[None, :] & torch.isfinite(lxd) & torch.isfinite(lyd)
+                    & torch.isfinite(lzd))
+            # A back-facing lane's diffuse and specular terms are zero whatever
+            # the occlusion, so disarming it (t_max = 0) is exact and costs the
+            # kernel nothing.
+            t_shadow = torch.where(cos > 0.0, dist - 2.0 * SHADOW_BIAS, 0.0)
+            if mask is not None:
+                t_shadow = torch.where((mask & finite)[None, :], t_shadow, 0.0)
+            origins = torch.stack([sox.expand(n_l, n), soy.expand(n_l, n),
+                                   soz.expand(n_l, n)], dim=-1)
+            dirs_occ = torch.stack([torch.where(ok_l, lxd, 1.0),
+                                    torch.where(ok_l, lyd, 1.0),
+                                    torch.where(ok_l, lzd, 1.0)], dim=-1)
+            blocked = occluder_fn(origins.reshape(-1, 3), dirs_occ.reshape(-1, 3),
+                                  t_shadow.reshape(-1)).reshape(n_l, n)
+            contrib = torch.where(blocked, 0.0, contrib)
+            if spec is not None:
+                spec = torch.where(blocked, 0.0, spec)
     if mask is not None:
         contrib = torch.where(mask[None, :], contrib, 0.0)
         if spec is not None:
@@ -285,10 +294,12 @@ def direct_lighting(points, normals, lights, occluder_fn, mask=None,
     diffuse = contrib.sum(dim=0)[:, None]
     spec_sum = None if spec is None else spec.sum(dim=0)[:, None]
     if unsort is not None:  # scatter sorted results back to ray order
-        diffuse = torch.zeros_like(diffuse).index_copy_(0, unsort, diffuse)
-        if spec_sum is not None:
-            spec_sum = torch.zeros_like(spec_sum).index_copy_(0, unsort,
-                                                              spec_sum)
+        with span("dxrt.occluder"):
+            diffuse = torch.zeros_like(diffuse).index_copy_(0, unsort,
+                                                            diffuse)
+            if spec_sum is not None:
+                spec_sum = torch.zeros_like(spec_sum).index_copy_(
+                    0, unsort, spec_sum)
     if spec_sum is None:
         return diffuse
     return diffuse, spec_sum

@@ -8,6 +8,8 @@ camera snapshot, mode) returning an (H, W, 3) f32 image on the scene's
 device.  Rays are generated in tile-major order (coherent tiles feed the
 binned intersector), per-hit attributes come from ONE packed-record
 gather, and the tile -> raster reorder at the end is a reshape/permute.
+Its steps are the spans ``dxrt.raygen``, ``dxrt.query``, ``dxrt.hit_record``,
+``dxrt.shade`` and ``dxrt.commit`` (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from ..models.scene import DeviceScene
 from ..ops.debug_shading import MISS_COLOR, shade_debug
 from ..ops.intersect import hit_record, intersect_bruteforce
 from ..ops.rays import generate_rays, generate_rays_tiled, pick_schedule
+from ..utils import trace
+from ..utils.trace import span
 
 
 def isect_kwargs(fn, tile_r):
@@ -74,28 +78,34 @@ def render_debug(dscene: DeviceScene, cam_position, cam_rotation, mode: int,
     geo = dscene.geometry
     device = geo.woop.device
     tile, tile_r = pick_schedule(height, width)
-    if tile is None:
-        origins, dirs = generate_rays(cam_position, cam_rotation, width,
-                                      height, device=device)
-    else:
-        origins, dirs = generate_rays_tiled(cam_position, cam_rotation, width,
-                                            height, tile[0], tile[1],
-                                            device=device)
-    if intersect_fn is None:
-        hit = intersect_bruteforce(origins, dirs, geo.woop)
-    else:
-        hit = intersect_fn(origins, dirs, geo,
-                           **isect_kwargs(intersect_fn, tile_r))
+    with span("dxrt.raygen"):
+        if tile is None:
+            origins, dirs = generate_rays(cam_position, cam_rotation, width,
+                                          height, device=device)
+        else:
+            origins, dirs = generate_rays_tiled(cam_position, cam_rotation,
+                                                width, height, tile[0],
+                                                tile[1], device=device)
+    with span("dxrt.query"):
+        if intersect_fn is None:
+            hit = intersect_bruteforce(origins, dirs, geo.woop)
+        else:
+            hit = intersect_fn(origins, dirs, geo,
+                               **isect_kwargs(intersect_fn, tile_r))
 
-    if fetch_record:
-        hit2, local_id, mesh_id, _, _ = hit_record(origins, dirs, geo.packed,
-                                                   hit)
-        t, u, v = hit2.t, hit2.u, hit2.v
-    else:
-        zero = torch.zeros_like(hit.tri)
-        t, u, v, local_id, mesh_id = hit.t, hit.u, hit.v, zero, zero
+    with span("dxrt.hit_record"):
+        if fetch_record:
+            hit2, local_id, mesh_id, _, _ = hit_record(origins, dirs,
+                                                       geo.packed, hit)
+            t, u, v = hit2.t, hit2.u, hit2.v
+        else:
+            zero = torch.zeros_like(hit.tri)
+            t, u, v, local_id, mesh_id = hit.t, hit.u, hit.v, zero, zero
 
-    color = shade_debug(mode, origins, dirs, t, u, v, local_id, mesh_id)
-    miss = torch.tensor(MISS_COLOR, dtype=torch.float32, device=device)
-    color = torch.where(hit.mask[:, None], color, miss)
-    return untile(color, width, height, tile)
+    with span("dxrt.shade"):
+        color = shade_debug(mode, origins, dirs, t, u, v, local_id, mesh_id)
+    with span("dxrt.commit"):
+        # A blocking copy: it waits for closest_hit and the shading.
+        miss = trace.upload(MISS_COLOR, device, "miss_color")
+        color = torch.where(hit.mask[:, None], color, miss)
+        return untile(color, width, height, tile)

@@ -39,6 +39,9 @@ it.  The checkpoint (``save_state``/``load_state``, ``.npz``) holds the
 accumulated radiance, the sample count and that CPU generator's state, so a
 checkpoint written on one device loads on another, and on one device
 resuming equals never having stopped.
+
+A sample is a ``dxrt.frame.pathtrace`` span and each bounce a ``dxrt.pass``,
+with the Whitted passes' spans inside (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from ..ops.intersect import hit_record
 from ..ops.rays import generate_rays, generate_rays_tiled, pick_schedule
 from ..ops.shading import RAY_BIAS, direct_lighting, hit_attributes, reflect, refract_fresnel
 from ..utils import checks
+from ..utils.trace import span
 from .debug import isect_kwargs, untile
 from .whitted import (PIXEL_SENTINEL, _compact_sort, _default_intersect,
                       _default_occluder, queue_capacity)
@@ -101,10 +105,23 @@ def _pt_shade_chunk(dscene, state, uniforms, depth, intersect_fn, occluder_fn,
     debug build's range guard on live pixel ids (the primary pass gives it;
     a bounce pass guards its commit instead)."""
     geo = dscene.geometry
+    with span("dxrt.query"):
+        hit = intersect_fn(state["origins"], state["dirs"], geo,
+                           **isect_kwargs(intersect_fn, tile_r))
+    with span("dxrt.hit_record"):
+        hit, _, _, _, rec = hit_record(state["origins"], state["dirs"],
+                                       geo.packed, hit)
+    with span("dxrt.shade"):
+        return _pt_shade_hits(dscene, state, uniforms, depth, hit, rec,
+                              occluder_fn, n_pix)
+
+
+def _pt_shade_hits(dscene, state, uniforms, depth, hit, rec, occluder_fn,
+                   n_pix: int | None):
+    """``_pt_shade_chunk``'s shading of the hits ``hit`` (with their
+    records ``rec``): the same (contrib, candidates)."""
+    geo = dscene.geometry
     active = state["active"]
-    hit = intersect_fn(state["origins"], state["dirs"], geo,
-                       **isect_kwargs(intersect_fn, tile_r))
-    hit, _, _, _, rec = hit_record(state["origins"], state["dirs"], geo.packed, hit)
     hit_mask = active & hit.mask
     miss_mask = active & ~hit.mask
     attrs = hit_attributes(dscene, state["origins"], state["dirs"], hit, rec)
@@ -190,10 +207,13 @@ def _pt_pass(dscene, state, framebuffer, uniforms, depth, intersect_fn,
     contrib, cand = _pt_shade_chunk(dscene, state, uniforms, depth,
                                     intersect_fn, occluder_fn, tile_r=tile_r,
                                     n_pix=framebuffer.shape[0] - 1)
-    framebuffer[:contrib.shape[0]] += contrib
+    with span("dxrt.commit"):
+        framebuffer[:contrib.shape[0]] += contrib
     if last:  # the continuations are never consumed: skip the compaction
         return None, 0
-    queue, n_alive, _ = _compact_sort(cand, capacity, geo.scene_lo, geo.scene_hi)
+    with span("dxrt.compact"):
+        queue, n_alive, _ = _compact_sort(cand, capacity, geo.scene_lo,
+                                          geo.scene_hi)
     return queue, n_alive
 
 
@@ -212,20 +232,22 @@ def _pt_pass_bounce(dscene, state, framebuffer, generator, depth, intersect_fn,
     uniforms = _draw(generator, n_alive, geo.woop.device)
     contrib, cand = _pt_shade_chunk(dscene, sub, uniforms, depth,
                                     intersect_fn, occluder_fn)
-    sink = framebuffer.shape[0] - 1
-    ids = sub["pixel"]
-    # Debug build: the queue invariant, on the ids as the queue holds them
-    # (before they are redirected to the sink): a live slot's id is in
-    # range, a parked slot's is exactly the sentinel.
-    checks.check(
-        lambda: ((ids >= 0) & ((ids < sink) | (ids == PIXEL_SENTINEL))).all(),
-        "PT bounce commit pixel id outside framebuffer/sentinel range")
-    ids = torch.where((ids >= 0) & (ids < sink), ids, sink)
-    framebuffer.index_add_(0, ids.long(), contrib)
+    with span("dxrt.commit"):
+        sink = framebuffer.shape[0] - 1
+        ids = sub["pixel"]
+        # Debug build: the queue invariant, on the ids as the queue holds
+        # them (before they are redirected to the sink): a live slot's id
+        # is in range, a parked slot's is exactly the sentinel.
+        checks.check(
+            lambda: ((ids >= 0) & ((ids < sink) | (ids == PIXEL_SENTINEL))).all(),
+            "PT bounce commit pixel id outside framebuffer/sentinel range")
+        ids = torch.where((ids >= 0) & (ids < sink), ids, sink)
+        framebuffer.index_add_(0, ids.long(), contrib)
     if last:
         return None, 0
-    queue, n_alive2, _ = _compact_sort(cand, state["origins"].shape[0],
-                                       geo.scene_lo, geo.scene_hi)
+    with span("dxrt.compact"):
+        queue, n_alive2, _ = _compact_sort(cand, state["origins"].shape[0],
+                                           geo.scene_lo, geo.scene_hi)
     return queue, n_alive2
 
 
@@ -250,23 +272,26 @@ def pathtrace_tile(dscene: DeviceScene, cam_position, cam_rotation,
         raise ValueError(f"{n_pix} pixels: ids must stay below {PIXEL_SENTINEL}")
     tile, tile_r = pick_schedule(rows, width)
 
-    if off is None:
-        off = torch.rand((2,), generator=generator, device=dev)
-    if tile is None:
-        origins, dirs = generate_rays(cam_position, cam_rotation, width,
-                                      height, off, row_start, rows, device=dev)
-    else:
-        origins, dirs = generate_rays_tiled(
-            cam_position, cam_rotation, width, height, tile[0], tile[1], off,
-            row_start, rows, device=dev)
+    with span("dxrt.raygen"):
+        if off is None:
+            off = torch.rand((2,), generator=generator, device=dev)
+        if tile is None:
+            origins, dirs = generate_rays(cam_position, cam_rotation, width,
+                                          height, off, row_start, rows,
+                                          device=dev)
+        else:
+            origins, dirs = generate_rays_tiled(
+                cam_position, cam_rotation, width, height, tile[0], tile[1],
+                off, row_start, rows, device=dev)
 
-    state = {
-        "origins": origins,
-        "dirs": dirs,
-        "throughput": torch.ones((n_pix, 3), dtype=torch.float32, device=dev),
-        "pixel": torch.arange(n_pix, dtype=torch.int32, device=dev),
-        "active": torch.ones((n_pix,), dtype=torch.bool, device=dev),
-    }
+        state = {
+            "origins": origins,
+            "dirs": dirs,
+            "throughput": torch.ones((n_pix, 3), dtype=torch.float32,
+                                     device=dev),
+            "pixel": torch.arange(n_pix, dtype=torch.int32, device=dev),
+            "active": torch.ones((n_pix,), dtype=torch.bool, device=dev),
+        }
     # n_pix rows + one sink row for ids the scatter must drop.
     framebuffer = torch.zeros((n_pix + 1, 3), dtype=torch.float32, device=dev)
     # PT rays never split, so a queue of n_pix rows (in whole chunks, the
@@ -275,14 +300,16 @@ def pathtrace_tile(dscene: DeviceScene, cam_position, cam_rotation,
     alive = n_pix
     for depth in range(max_depth):
         last = depth == max_depth - 1
-        if depth == 0:
-            state, alive = _pt_pass(
-                dscene, state, framebuffer, _draw(generator, n_pix, dev),
-                depth, isect, occluder, capacity, tile_r=tile_r, last=last)
-        else:
-            state, alive = _pt_pass_bounce(
-                dscene, state, framebuffer, generator, depth, isect, occluder,
-                alive, last=last)
+        with span("dxrt.pass"):
+            if depth == 0:
+                state, alive = _pt_pass(
+                    dscene, state, framebuffer, _draw(generator, n_pix, dev),
+                    depth, isect, occluder, capacity, tile_r=tile_r,
+                    last=last)
+            else:
+                state, alive = _pt_pass_bounce(
+                    dscene, state, framebuffer, generator, depth, isect,
+                    occluder, alive, last=last)
         if state is None:
             break
     return framebuffer[:n_pix]
@@ -320,14 +347,19 @@ class PathTracer:
         """Accumulate ``n`` samples.  With DXRT_CHECK=1 every pass runs its
         guards (utils.checks) and a failing one raises ``CheckError``."""
         for _ in range(n):
-            seed = int(torch.randint(0, 2**63 - 1, (1,), generator=self.key,
-                                     dtype=torch.int64))
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            self.accum += pathtrace_sample(
-                self.dscene, cam_position, cam_rotation, gen, self.width,
-                self.height, self.max_depth, self.intersect_fn,
-                self.occluder_factory)
-            self.n_samples += 1
+            with span("dxrt.frame.pathtrace"):
+                # The seed is read from a CPU generator: no host sync.
+                seed = int(torch.randint(0, 2**63 - 1, (1,),
+                                         generator=self.key,
+                                         dtype=torch.int64))
+                gen = torch.Generator(device=self.device).manual_seed(seed)
+                sample = pathtrace_sample(
+                    self.dscene, cam_position, cam_rotation, gen, self.width,
+                    self.height, self.max_depth, self.intersect_fn,
+                    self.occluder_factory)
+                with span("dxrt.commit"):
+                    self.accum += sample
+                self.n_samples += 1
         return self
 
     def image(self):

@@ -35,6 +35,7 @@ from ..bvh import build_bvh, make_bvh_intersect_fn, make_bvh_occluder_factory
 from ..models.scene import Scene, build_device_scene
 from ..ops.debug_shading import MODE_NAMES
 from ..utils import checks
+from ..utils.trace import span
 from .debug import render_debug
 from .whitted import render_whitted, render_whitted_checked
 
@@ -130,26 +131,28 @@ class Renderer:
     def render_frame(self, mode: int = 0) -> torch.Tensor:
         """One debug-shaded frame (the reference's only executed path), an
         (H, W, 3) f32 tensor on the renderer's device."""
-        pos, rot = self.camera.snapshot()
-        img = render_debug(self.dscene, pos, rot, mode, self.width,
-                           self.height, intersect_fn=self.intersect_fn,
-                           fetch_record=(mode <= 3))
-        self.stats.tick(self.width * self.height)
-        return img
+        with span("dxrt.frame.debug"):
+            pos, rot = self.camera.snapshot()
+            img = render_debug(self.dscene, pos, rot, mode, self.width,
+                               self.height, intersect_fn=self.intersect_fn,
+                               fetch_record=(mode <= 3))
+            self.stats.tick(self.width * self.height)
+            return img
 
     def render_whitted_frame(self, max_depth: int = 5, spp: int = 1):
         """One Whitted frame (the capability surface the reference parses
         but never executes — materials, lights, shadows, specular): an
         (H, W, 3) f32 tensor on the renderer's device, and the per-pass
         alive/dropped stats."""
-        pos, rot = self.camera.snapshot()
-        fn = render_whitted_checked if checks.enabled() else render_whitted
-        img, stats = fn(
-            self.dscene, pos, rot, self.width, self.height,
-            max_depth=max_depth, spp=spp, intersect_fn=self.intersect_fn,
-            occluder_factory=self.occluder_factory)
-        self.stats.tick(self.width * self.height * spp)
-        return img, stats
+        with span("dxrt.frame.whitted"):
+            pos, rot = self.camera.snapshot()
+            fn = render_whitted_checked if checks.enabled() else render_whitted
+            img, stats = fn(
+                self.dscene, pos, rot, self.width, self.height,
+                max_depth=max_depth, spp=spp, intersect_fn=self.intersect_fn,
+                occluder_factory=self.occluder_factory)
+            self.stats.tick(self.width * self.height * spp)
+            return img, stats
 
     @staticmethod
     def to_u8(img):
@@ -161,8 +164,9 @@ class Renderer:
     @staticmethod
     def to_u8_device(img: torch.Tensor) -> torch.Tensor:
         """UNORM u8 conversion on the image's device (the rounding of
-        utils.image.to_u8), without a host copy."""
-        return (img.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+        utils.image.to_u8), without a host copy (span ``dxrt.to_u8``)."""
+        with span("dxrt.to_u8"):
+            return (img.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
     @staticmethod
     def mode_name(mode: int) -> str:

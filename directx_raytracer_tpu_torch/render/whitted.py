@@ -25,6 +25,9 @@ made real as a wavefront rather than a recursive per-pixel shader:
   into the next wavefront;
 * the live count is read once per compaction (one host sync), and a bounce
   pass shades only the live prefix of its queue;
+* each pass is a ``dxrt.pass`` span holding ``dxrt.query``,
+  ``dxrt.hit_record``, ``dxrt.shade``, ``dxrt.commit`` and ``dxrt.compact``
+  (utils/trace.py);
 * REFRACTIVE surfaces split the ray: the refraction branch (weight
   1 - Fresnel) goes in the first half of the candidate list, the reflection
   branch (weight Fresnel) in the second half, so under queue overflow the
@@ -47,7 +50,8 @@ from ..models.scene import DeviceScene
 from ..ops.intersect import hit_record, intersect_bruteforce, occluded_bruteforce
 from ..ops.rays import RGSS_OFFSETS, generate_rays, generate_rays_tiled, pick_schedule
 from ..ops.shading import RAY_BIAS, direct_lighting, hit_attributes, reflect, refract_fresnel
-from ..utils import checks
+from ..utils import checks, trace
+from ..utils.trace import span
 from .debug import isect_kwargs, untile
 
 # Continuations whose peak throughput falls below this contribute < 1/256 of
@@ -97,7 +101,8 @@ def _compact_sort(cand: dict, capacity: int, scene_lo, scene_hi,
     Fresnel-reflection half — overflow drops it before the transmission
     half) | direction octant (3b) | origin Morton cell (24b).  Rows past the
     live prefix are parked.  Reading the live count is the pass's host
-    sync.
+    sync (``sync.compact_count``), and the parked row's copy another
+    (``sync.park_row``).
 
     Returns (queue, n_alive, n_dropped), the counts as Python ints and
     n_alive clamped to ``capacity``.
@@ -124,14 +129,14 @@ def _compact_sort(cand: dict, capacity: int, scene_lo, scene_hi,
     key = torch.where(active, key, 1 << 29)
     order = torch.sort(key, stable=True).indices
 
+    trace.count("sync.compact_count")
     n_active = int(active.sum())
     n_alive = min(n_active, capacity)
     src = torch.cat(
         [o, d, cand["throughput"],
          cand["pixel"].clamp(max=PIXEL_SENTINEL).to(torch.float32)[:, None]],
         dim=1)
-    packed = torch.tensor(_PARK, dtype=torch.float32, device=dev).repeat(
-        capacity, 1)
+    packed = trace.upload(_PARK, dev, "park_row").repeat(capacity, 1)
     packed[:n_alive] = src[order[:n_alive]]
     queue = {
         "origins": packed[:, 0:3],
@@ -157,12 +162,23 @@ def _shade_chunk(dscene, state, intersect_fn, occluder_fn, last: bool,
     B = the droppable Fresnel-reflection branch.  ``None`` when ``last``.
     """
     geo = dscene.geometry
-    active = state["active"]
+    with span("dxrt.query"):
+        hit = intersect_fn(state["origins"], state["dirs"], geo,
+                           **isect_kwargs(intersect_fn, tile_r))
+    with span("dxrt.hit_record"):
+        hit, _, _, _, rec = hit_record(state["origins"], state["dirs"],
+                                       geo.packed, hit)
+    with span("dxrt.shade"):
+        return _shade_hits(dscene, state, hit, rec, occluder_fn, last,
+                           n_pix)
 
-    hit = intersect_fn(state["origins"], state["dirs"], geo,
-                       **isect_kwargs(intersect_fn, tile_r))
-    hit, _, _, _, rec = hit_record(state["origins"], state["dirs"],
-                                   geo.packed, hit)
+
+def _shade_hits(dscene, state, hit, rec, occluder_fn, last: bool,
+                n_pix: int | None):
+    """``_shade_chunk``'s shading of the hits ``hit`` (with their records
+    ``rec``): the same (contrib, candidates)."""
+    geo = dscene.geometry
+    active = state["active"]
     hit_mask = active & hit.mask
     miss_mask = active & ~hit.mask
 
@@ -277,10 +293,12 @@ def _shade_pass(dscene, state, framebuffer, intersect_fn, occluder_fn,
     contrib, cands = _shade_chunk(dscene, state, intersect_fn, occluder_fn,
                                   last, tile_r=tile_r,
                                   n_pix=framebuffer.shape[0] - 1)
-    framebuffer[:contrib.shape[0]] += contrib
+    with span("dxrt.commit"):
+        framebuffer[:contrib.shape[0]] += contrib
     if cands is None:
         return None, 0, {"alive": 0, "dropped": 0}
-    return _compact_candidates(cands, capacity, dscene.geometry)
+    with span("dxrt.compact"):
+        return _compact_candidates(cands, capacity, dscene.geometry)
 
 
 def _shade_pass_bounce(dscene, state, framebuffer, n_alive: int,
@@ -295,20 +313,22 @@ def _shade_pass_bounce(dscene, state, framebuffer, n_alive: int,
     sub = {k: v[:n_alive] for k, v in state.items()}
     contrib, cands = _shade_chunk(dscene, sub, intersect_fn, occluder_fn,
                                   last)
-    sink = framebuffer.shape[0] - 1
-    ids = sub["pixel"]
-    # Debug build: the queue invariant, on the ids as the queue holds them
-    # (before they are redirected to the sink): live ids in range, parked
-    # ids exactly the sentinel.
-    checks.check(
-        lambda: ((ids >= 0) & ((ids < sink) | (ids == PIXEL_SENTINEL))).all(),
-        "bounce commit pixel id outside framebuffer/sentinel range")
-    ids = torch.where((ids >= 0) & (ids < sink), ids, sink)
-    framebuffer.index_add_(0, ids.long(), contrib)
+    with span("dxrt.commit"):
+        sink = framebuffer.shape[0] - 1
+        ids = sub["pixel"]
+        # Debug build: the queue invariant, on the ids as the queue holds
+        # them (before they are redirected to the sink): live ids in range,
+        # parked ids exactly the sentinel.
+        checks.check(
+            lambda: ((ids >= 0) & ((ids < sink) | (ids == PIXEL_SENTINEL))).all(),
+            "bounce commit pixel id outside framebuffer/sentinel range")
+        ids = torch.where((ids >= 0) & (ids < sink), ids, sink)
+        framebuffer.index_add_(0, ids.long(), contrib)
     if cands is None:
         return None, 0, {"alive": 0, "dropped": 0}
-    return _compact_candidates(cands, state["origins"].shape[0],
-                               dscene.geometry)
+    with span("dxrt.compact"):
+        return _compact_candidates(cands, state["origins"].shape[0],
+                                   dscene.geometry)
 
 
 def render_tile(
@@ -369,37 +389,42 @@ def render_tile(
     framebuffer = torch.zeros((n_pix + 1, 3), dtype=torch.float32, device=dev)
     stats = []
     for offset, offset_weight in zip(offsets, offset_weights):
-        if tile is None:
-            origins, dirs = generate_rays(cam_position, cam_rotation, width,
-                                          height, offset, row_start, rows,
-                                          device=dev)
-        else:
-            origins, dirs = generate_rays_tiled(
-                cam_position, cam_rotation, width, height, tile[0], tile[1],
-                offset, row_start, rows, device=dev)
-        state = {
-            "origins": origins,
-            "dirs": dirs,
-            "throughput": torch.full((n_pix, 3), weight, dtype=torch.float32,
-                                     device=dev) * float(offset_weight),
-            "pixel": torch.arange(n_pix, dtype=torch.int32, device=dev),
-            "active": torch.ones((n_pix,), dtype=torch.bool, device=dev),
-        }
+        with span("dxrt.raygen"):
+            if tile is None:
+                origins, dirs = generate_rays(cam_position, cam_rotation,
+                                              width, height, offset,
+                                              row_start, rows, device=dev)
+            else:
+                origins, dirs = generate_rays_tiled(
+                    cam_position, cam_rotation, width, height, tile[0],
+                    tile[1], offset, row_start, rows, device=dev)
+            state = {
+                "origins": origins,
+                "dirs": dirs,
+                "throughput": torch.full((n_pix, 3), weight,
+                                         dtype=torch.float32, device=dev)
+                * float(offset_weight),
+                "pixel": torch.arange(n_pix, dtype=torch.int32, device=dev),
+                "active": torch.ones((n_pix,), dtype=torch.bool, device=dev),
+            }
         alive = n_pix
         for depth in range(max_depth):
             last = depth == max_depth - 1
-            if depth == 0:
-                state, alive, s = _shade_pass(
-                    dscene, state, framebuffer, isect, occluder, last,
-                    capacity, tile_r=tile_r)
-            else:
-                state, alive, s = _shade_pass_bounce(
-                    dscene, state, framebuffer, alive, isect, occluder, last)
+            with span("dxrt.pass"):
+                if depth == 0:
+                    state, alive, s = _shade_pass(
+                        dscene, state, framebuffer, isect, occluder, last,
+                        capacity, tile_r=tile_r)
+                else:
+                    state, alive, s = _shade_pass_bounce(
+                        dscene, state, framebuffer, alive, isect, occluder,
+                        last)
             stats.append(s)
             if state is None:
                 break
 
-    image = untile(framebuffer[:n_pix], width, rows, tile)
+    with span("dxrt.commit"):
+        image = untile(framebuffer[:n_pix], width, rows, tile)
     return image, {
         "alive": torch.tensor([s["alive"] for s in stats], dtype=torch.int32),
         "dropped": torch.tensor([s["dropped"] for s in stats],

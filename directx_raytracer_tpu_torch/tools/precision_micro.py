@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..bvh import cuda_intersect as ci
+from ..utils import trace
 
 K = 128
 R = 256
@@ -58,15 +59,6 @@ PLAIN_CHUNK = 64  # steps per pass of the plain version (~50 MB temporaries)
 # The error probe counts a ray's min t as agreeing with float64 within the
 # repository's own t gate (bench.py:156-164).
 PROBE_RTOL = 1e-3
-
-# Kernel launches per variant since the last reset (plain integers; the
-# plain version never counts).
-LAUNCHES = dict.fromkeys(VARIANTS, 0)
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _check_variant(variant: str) -> None:
@@ -167,7 +159,9 @@ def precision_fold(variant: str, w: torch.Tensor,
                                           out.data_ptr(), steps,
                                           VARIANTS.index(variant), stream)
         ci.check_launch(lib, "precision_micro", err)
-        LAUNCHES[variant] += 1
+        # Counted as launch.precision_micro.<variant>; the plain version
+        # never counts.
+        trace.count(f"launch.precision_micro.{variant}")
     return out
 
 

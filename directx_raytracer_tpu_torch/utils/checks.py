@@ -21,6 +21,8 @@ from __future__ import annotations
 import contextlib
 import os
 
+from . import trace
+
 _forced = 0  # depth of ``armed()`` blocks in this process
 
 
@@ -52,8 +54,11 @@ def check(pred, msg: str) -> None:
 
     ``pred`` is a callable returning a 0-d bool tensor (or a bool): it is
     not even evaluated unarmed, so the regular paths pay nothing.  Armed,
-    reading the verdict is one host sync per guard — the price of the debug
-    build.
+    reading the verdict is one host sync per guard (``sync.check``) — the
+    price of the debug build.
     """
-    if enabled() and not bool(pred()):
+    if not enabled():
+        return
+    trace.count("sync.check")
+    if not bool(pred()):
         raise CheckError(msg)

@@ -11,7 +11,8 @@ status bar.  Headless GPU hosts get the same control surface:
 * ``render``   — one frame to PNG (scene path + camera/mode flags);
 * ``orbit``    — camera-path scripting: N frames orbiting the scene,
   written as a PNG sequence (and an FPS/Mrays report); ``--profile DIR``
-  writes a torch.profiler Chrome trace of the frame loop into DIR;
+  writes a torch.profiler Chrome trace of the frame loop into DIR, with
+  the frames' ``dxrt.`` spans (utils/trace.py) beside the device records;
 * ``interactive`` — live ANSI-terminal viewport with WASD/arrow controls,
   per-second FPS line, mode switching, frame saving;
 * ``pathtrace`` — progressive path-traced render with checkpoint/resume;
@@ -279,7 +280,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--frames", type=int, default=24)
     sp.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler Chrome trace of the frame "
-                    "loop into DIR")
+                    "loop into DIR: its device records and the frames' dxrt. "
+                    "spans (raygen, query, shade, occluder, compact, commit)")
     sp.add_argument("--output", "-o", default=None,
                     help="PNG path or printf pattern (omit to benchmark only)")
     sp.set_defaults(fn=cmd_orbit)

@@ -19,6 +19,7 @@ import torch
 from directx_raytracer_tpu.bvh.pallas_intersect import bin_clusters_bits
 from directx_raytracer_tpu_torch.bvh import cuda_intersect as ci
 from directx_raytracer_tpu_torch.ops.rays import T_MIN
+from directx_raytracer_tpu_torch.utils import trace
 from test_torch_intersect import fx, unpack_words  # noqa: F401  (fixture)
 
 torch.set_num_threads(2)
@@ -238,9 +239,9 @@ def test_bin_lists_modes(fx):
         ci.bin_lists(tp, cb, mode="sparse")
     with pytest.raises(ValueError):  # hull rows of another block size
         ci.bin_lists(tp, cb, ci.super_rows(cb, 8), mode="super", block=4)
-    before = dict(ci.LAUNCHES)
+    before = trace.launches()
     ci.bin_lists(tp, cb, mode="super", block=8)
-    assert ci.LAUNCHES == before  # plain versions never count
+    assert trace.launches() == before  # plain versions never count
 
 
 # ---------------------------------------------------------------------------

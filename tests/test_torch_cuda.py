@@ -42,6 +42,7 @@ from directx_raytracer_tpu_torch.render.renderer import Renderer
 from directx_raytracer_tpu_torch.render.whitted import render_whitted
 from directx_raytracer_tpu_torch.tools import precision_micro as pm
 from directx_raytracer_tpu_torch.utils.image import to_u8
+from directx_raytracer_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.gpu
 
@@ -246,14 +247,14 @@ def test_closest_count_exec_build(x, tile_r, chunk):
                                                 x["cb"])
     args = (o, d, t_init, x["bvh"].wrows, visit, ventry, counts, tile_r)
     chunk = max(width, 1) if chunk is None else chunk
-    before = dict(ci.LAUNCHES)
+    before = trace.launches()
     bt, bs = ci.closest_hit(*args, chunk=chunk, width=width)
     bt_c, bs_c, executed = ci.closest_hit(*args, chunk=chunk, width=width,
                                           count_exec=True)
     _, _, plain = ci.closest_hit_plain(*args, count_exec=True)
     torch.cuda.synchronize()
-    assert ci.LAUNCHES["closest_hit"] == before["closest_hit"] + 1
-    assert ci.LAUNCHES["closest_hit_exec"] == before["closest_hit_exec"] + 1
+    assert trace.launches()["closest_hit"] == before["closest_hit"] + 1
+    assert trace.launches()["closest_hit_exec"] == before["closest_hit_exec"] + 1
     assert torch.equal(bt.view(torch.int32), bt_c.view(torch.int32))
     assert torch.equal(bs, bs_c)
     assert executed.dtype == torch.int32 and executed.shape == counts.shape
@@ -314,16 +315,16 @@ def test_closest_kernel_refuses_a_hit_at_the_seed(cuda, chunk):
 
 
 def test_wrappers_count_launches(x):
-    before = dict(ci.LAUNCHES)
+    before = trace.launches()
     ci.bin_lists(x["tp"], x["cb"])
     ci.closest_hit(x["o"], x["d"], x["t_init"], x["bvh"].wrows, *x["lists"],
                    x["tile_r"])
     ci.bin_lists_plain(x["tp"], x["cb"])
     ci.bin_lists(x["tp"], x["cb"], plain=True)
-    assert ci.LAUNCHES["bin_clusters"] == before["bin_clusters"] + 1
-    assert ci.LAUNCHES["closest_hit"] == before["closest_hit"] + 1
+    assert trace.launches()["bin_clusters"] == before["bin_clusters"] + 1
+    assert trace.launches()["closest_hit"] == before["closest_hit"] + 1
     ci.bin_lists(x["tp"], x["cb"], mode="super", block=8)
-    assert ci.LAUNCHES["bin_clusters_super"] == before["bin_clusters_super"] + 1
+    assert trace.launches()["bin_clusters_super"] == before["bin_clusters_super"] + 1
 
 
 def test_wrappers_reject_bad_operands(x):
@@ -347,9 +348,9 @@ def test_frame_matches_plain(cuda):
     """Mode 5 through the Renderer (kernels) vs render_debug through the
     plain versions: within 2 u8 levels on >= 99% of pixels."""
     r = Renderer(testscenes.bench_scene(3_000, W, H), W, H, device=cuda)
-    before = dict(ci.LAUNCHES)
+    before = trace.launches()
     img = r.render_frame(5)
-    assert all(ci.LAUNCHES[k] > before[k] for k in ("bin_clusters",
+    assert all(trace.launches()[k] > before[k] for k in ("bin_clusters",
                                                     "closest_hit"))
 
     def plain_fn(o, d, geo, tile_r=None):
@@ -383,9 +384,9 @@ def test_any_hit_kernel_matches_plain(x):
     o, d, t_max, *lists = ci.anyhit_schedule(*shadow_batch(x),
                                              x["bvh"].clusters)
     args = (o, d, t_max, x["bvh"].wrows, *lists, TILE_R)
-    before = ci.LAUNCHES["any_hit"]
+    before = trace.launches()["any_hit"]
     got = ci.any_hit(*args)
-    assert ci.LAUNCHES["any_hit"] == before + 1
+    assert trace.launches()["any_hit"] == before + 1
     want = ci.any_hit_plain(*args)
     torch.cuda.synchronize()
     assert (got == want).float().mean() >= 0.999
@@ -421,9 +422,9 @@ def test_occluded_fused_kernels_match_plain(x):
 @pytest.mark.parametrize("block", [32, 8])
 def test_super_kernel_matches_dense_and_plain(x, block):
     sb = ci.super_rows(x["cb"], block)
-    before = ci.LAUNCHES["bin_clusters_super"]
+    before = trace.launches()["bin_clusters_super"]
     got = ci.bin_lists(x["tp"], x["cb"], sb, mode="super", block=block)
-    assert ci.LAUNCHES["bin_clusters_super"] == before + 1
+    assert trace.launches()["bin_clusters_super"] == before + 1
     assert_lists_equal(got, ci.bin_lists_plain(x["tp"], x["cb"], sb, block))
     assert_lists_equal(got, ci.bin_lists_plain(x["tp"], x["cb"]))
     visit, ventry, counts, width = ci.bin_lists(x["tp"], x["cb"], mode="dense")
@@ -435,10 +436,10 @@ def test_whitted_frame_matches_plain(cuda):
     """A depth-3 Whitted frame through the Renderer (kernels) vs the same
     frame through the plain versions on the card."""
     r = Renderer(testscenes.bench_scene(3_000, W, H), W, H, device=cuda)
-    before = dict(ci.LAUNCHES)
+    before = trace.launches()
     img, stats = r.render_whitted_frame(max_depth=3)
     for name in ("bin_clusters", "closest_hit", "any_hit"):
-        assert ci.LAUNCHES[name] > before[name], name
+        assert trace.launches()[name] > before[name], name
 
     def plain_isect(o, d, geo, tile_r=None):
         return intersect_fused(o, d, r.bvh.clusters, r.bvh.wrows,
@@ -473,9 +474,9 @@ def fold_inputs(cuda):
 @pytest.mark.parametrize("variant", pm.VARIANTS)
 def test_precision_fold_kernel_matches_plain(fold_inputs, variant):
     w, rays = fold_inputs
-    before = pm.LAUNCHES[variant]
+    before = trace.launches()[f"precision_micro.{variant}"]
     got = pm.min_t(pm.precision_fold(variant, w, rays))
-    assert pm.LAUNCHES[variant] == before + 1
+    assert trace.launches()[f"precision_micro.{variant}"] == before + 1
     want = pm.min_t(pm.precision_fold_plain(variant, w, rays))
     torch.cuda.synchronize()
     assert torch.equal(torch.isinf(got), torch.isinf(want))
@@ -544,14 +545,14 @@ def test_pathtrace_sample_matches_plain(cuda):
         return pathtrace_sample(r.dscene, pos, rot, gen, W, H, max_depth=4,
                                 intersect_fn=isect, occluder_factory=occf)
 
-    ci.reset_launch_counts()
+    trace.reset()
     got = sample(r.intersect_fn, r.occluder_factory)
     torch.cuda.synchronize()
     for name in ("bin_clusters", "closest_hit", "any_hit"):
-        assert ci.LAUNCHES[name] > 0, name
-    before = dict(ci.LAUNCHES)
+        assert trace.launches()[name] > 0, name
+    before = trace.launches()
     want = sample(plain_isect, plain_occ)
-    assert ci.LAUNCHES == before  # the plain versions launch nothing
+    assert trace.launches() == before  # the plain versions launch nothing
     assert torch.isfinite(got).all() and (got >= 0).all()
     diff = np.abs(to_u8(got).astype(int) - to_u8(want).astype(int))
     assert ((diff <= 2).all(axis=-1)).mean() >= 0.99
@@ -593,7 +594,7 @@ def test_intersectors_agree_with_bruteforce_on_the_card(x, small, route):
                                                  traverse_closest)
 
     o, d, bvh = x["o"], x["d"], x["bvh"]
-    before = dict(ci.LAUNCHES)
+    before = trace.launches()
     if route == "traverse_closest":
         got = traverse_closest(o, d, small["lbvh"], block=2000)
     elif route == "intersect_clustered":
@@ -602,7 +603,7 @@ def test_intersectors_agree_with_bruteforce_on_the_card(x, small, route):
         got = intersect_fused(o, d, bvh.clusters, bvh.wrows, x["tile_r"])
     assert_hits_agree(got, small["ref"])
     # Only the fused route launches kernels: the oracles are plain torch.
-    launched = ci.LAUNCHES["closest_hit"] - before["closest_hit"]
+    launched = trace.launches()["closest_hit"] - before["closest_hit"]
     assert launched == (1 if route == "intersect_fused" else 0)
 
 
@@ -667,14 +668,14 @@ def test_cuda_renderer_takes_the_kernels_unless_asked(cuda):
     """use_kernels=None on a CUDA device is the kernels; the walker only
     when asked, and it launches nothing."""
     scene = testscenes.bench_scene(3_000, W, H)
-    ci.reset_launch_counts()
+    trace.reset()
     kernels = Renderer(scene, W, H, device=cuda).render_frame(5)
-    assert ci.LAUNCHES["closest_hit"] == 1
+    assert trace.launches()["closest_hit"] == 1
     walker = Renderer(scene, W, H, device=cuda,
                       use_kernels=False).render_frame(5)
     brute = Renderer(scene, W, H, device=cuda, use_bvh=False).render_frame(5)
     torch.cuda.synchronize()
-    assert ci.LAUNCHES["closest_hit"] == 1
+    assert trace.launches()["closest_hit"] == 1
     for other in (walker, brute):
         diff = np.abs(to_u8(kernels).astype(int) - to_u8(other).astype(int))
         assert ((diff <= 2).all(axis=-1)).mean() >= 0.99

@@ -37,6 +37,7 @@ from directx_raytracer_tpu_torch.models.scene import (
     scene_from_numpy,
 )
 from directx_raytracer_tpu_torch.ops import intersect as px
+from directx_raytracer_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
 
@@ -200,10 +201,10 @@ def test_bin_plain_matches_pallas_binner(fx):
 def test_bin_wrapper_takes_plain_on_cpu(fx):
     tp = ci.tile_params(fx.o, fx.d, 768)
     cb = ci.cluster_rows(fx.cs)
-    before = dict(ci.LAUNCHES)
+    before = trace.launches()
     for got, want in zip(ci.bin_clusters(tp, cb), ci.bin_clusters_plain(tp, cb)):
         assert torch.equal(got, want)
-    assert ci.LAUNCHES == before  # plain versions never count
+    assert trace.launches() == before  # plain versions never count
 
 
 @pytest.mark.parametrize("tile_r", [768, 256])

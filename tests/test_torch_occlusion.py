@@ -37,6 +37,7 @@ from directx_raytracer_tpu_torch.bvh import cuda_intersect as ci
 from directx_raytracer_tpu_torch import testscenes as pts
 from directx_raytracer_tpu_torch.models.scene import build_device_scene
 from directx_raytracer_tpu_torch.ops import intersect as px
+from directx_raytracer_tpu_torch.utils import trace
 from test_torch_intersect import numpy_leaves
 
 torch.set_num_threads(2)
@@ -121,11 +122,11 @@ def test_occluded_fused_matches_jax(fx, j_occ, name):
 
 def test_occluded_wrapper_takes_plain_on_cpu(fx):
     tm = torch.full((fx.o.shape[0],), 25.0)
-    before = dict(ci.LAUNCHES)
+    before = trace.launches()
     got = ci.occluded_fused(fx.o, fx.d, fx.cs, fx.wrows, tm)
     want = ci.occluded_fused(fx.o, fx.d, fx.cs, fx.wrows, tm, plain=True)
     assert torch.equal(got, want)
-    assert ci.LAUNCHES == before  # plain versions never count
+    assert trace.launches() == before  # plain versions never count
 
 
 def test_disarmed_tiles_bin_nothing(fx):

@@ -36,6 +36,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from directx_raytracer_tpu_torch.tools import precision_micro as ppm
+from directx_raytracer_tpu_torch.utils import trace
 from tools import precision_micro as jpm
 
 S = 16
@@ -133,11 +134,11 @@ def test_zero_denominator_is_no_hit(variant):
 def test_wrapper_takes_plain_version_on_cpu(inputs, variant):
     w, rays = (torch.from_numpy(x[:4] if x.shape[0] == S else x)
                for x in inputs)
-    before = dict(ppm.LAUNCHES)
+    before = trace.launches()
     got = ppm.precision_fold(variant, w, rays)
     assert got.dtype == torch.int32 and got.shape == (1, 1, R)
     assert torch.equal(got, ppm.precision_fold_plain(variant, w, rays))
-    assert ppm.LAUNCHES == before
+    assert trace.launches() == before
 
 
 def test_plain_chunks_agree_and_reject_bad_variant(inputs):
