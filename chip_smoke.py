@@ -116,12 +116,16 @@ Phases, each of which raises (exit code != 0) on failure:
    the 100k and 1M primary batches must launch closest_hit's counting
    build, "closest_hit_exec"; each batch record's launches are those of
    its own exec_stats run, the bounce's those of the Whitted render that
-   hands it over); that build at the 100k primary, the Whitted
-   bounce and the 1M primary batches: best t and slot bit-equal to the
-   production build's, per tile the plain walk's visits <= executed <=
-   counts, and with one work item a tile executed equal to the plain
-   visits on >= 99.9% of tiles; timed beside the production build in the
-   same run; then kernel_micro (E_real, E_all, E_none), cull_stats,
+   hands it over, the path-traced bounce's those of the sample that hands
+   it over); that build at the 100k primary, the Whitted bounce, the 1M
+   primary and the path-traced first bounce batches: best t and slot
+   bit-equal to the production build's and to those of the production
+   build with cull boxes that drop nothing, per tile the plain walk's
+   visits <= executed <= counts, with one work item a tile executed equal
+   to the plain visits on >= 99.9% of tiles, and the 32-ray groups tested
+   within [0, executed x ceil(tile_r / 32)], the cull share printed beside
+   the plain walk's; timed beside the production build in the same run,
+   which is timed beside its run without the cull; then kernel_micro (E_real, E_all, E_none), cull_stats,
    whitted_bench for 2 frames, verify_drive into a temporary directory
    (its PNGs must exist and not be black), and the bench's functions:
    kernel_smoke and golden_tile_gate on the card, and measure at 5 / 2 / 3
@@ -133,7 +137,8 @@ Each kernel's line in the kernels JSON also carries its bound (the least
 time the card could take for the same work: bytes over the memory rate or
 operations over the peak rate, whichever is larger, computed from this
 run's inputs; for closest_hit and any_hit from the pairs their plain walks
-visit, for the binning kernel from its slab tests and its sorting
+visit (every ray of a visited tile, whatever closest_hit's cull skips),
+for the binning kernel from its slab tests and its sorting
 networks' compare-exchanges) and library_ms: null, since no single PyTorch
 call computes any of these functions.  The lines of bin_clusters (the
 binning kernel's dense mode), bin_clusters_super (its superblock mode),
@@ -152,8 +157,11 @@ before the kernels line says what every window saw.
 
 closest_hit_exec, the counting build of closest_hit (phase 14), carries
 its ms beside the production build's (``production_ms``), and per batch
-the executed, plain-walk and scheduled visits.  The build log's register
-counts of each closest_hit instantiation are printed after the build.
+the executed, plain-walk and scheduled visits, the groups tested, the cull
+shares (``cull_share``, ``plain_cull_share``) and the production build's
+ms with and without the cull (``cull_ms``, ``nocull_ms``).  The build
+log's register counts, stack frame and spill bytes of each closest_hit
+instantiation are printed after the build.
 
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {...}}.
@@ -552,20 +560,20 @@ def closest_args(o, d, bvh, tile_r):
     """The closest_hit operands of a ray batch, as intersect_fused builds
     them (the lists binned by the plain binner)."""
     return ci.closest_query(o, d, bvh.clusters, bvh.wrows, tile_r, plain=True,
-                            srows=bvh.srows).args()
+                            srows=bvh.srows, crows=bvh.crows).args()
 
 
 def walk_bytes(args) -> int:
-    """The bytes a walk must move: rays, rows, counts and each listed
-    (id, entry) once."""
-    counts = args[6]
-    return nbytes(*args[:4], counts) + 8 * int(counts.sum())
+    """The bytes a walk must move: rays, rows (and cull boxes), counts and
+    each listed (id, entry) once."""
+    counts = args[-2]
+    return nbytes(*args[:-4], counts) + 8 * int(counts.sum())
 
 
 def check_closest(args, label):
     """Kernel vs plain version on one closest-hit batch.  Returns the
     largest t difference among equal winners and the kernel's bound."""
-    visit, counts = args[4], args[6]
+    visit, counts = args[5], args[7]
     bt_k, bs_k = ci.closest_hit(*args)
     work = {}
     bt_p, bs_p = ci.closest_hit_plain(*args, stats=work)
@@ -627,15 +635,15 @@ def kernels_vs_plain(device, card):
         x = kernel_inputs(n_tris, width, height, device)
         if (n_tris, width, height) != BIG_SCENE:
             lists, _ = check_lists(label, x["tp"], x["cb"])
-            check_closest((x["o"], x["d"], x["t_init"], x["wrows"], *lists[:3],
-                           x["tile_r"]), label)
+            check_closest((x["o"], x["d"], x["t_init"], x["wrows"],
+                           x["bvh"].crows, *lists[:3], x["tile_r"]), label)
             continue
         rec, lists, bin_err = bin_batch("100k 1080p primary", x["tp"], x["cb"],
                                         None, 0, card)
         records["bin_clusters"] = dict(max_abs_err=bin_err, library_ms=None,
                                        batches=[rec])
-        args = (x["o"], x["d"], x["t_init"], x["wrows"], *lists[:3],
-                x["tile_r"])
+        args = (x["o"], x["d"], x["t_init"], x["wrows"], x["bvh"].crows,
+                *lists[:3], x["tile_r"])
         batch, hit_err = closest_batch(args, "100k 1080p primary", 0, card)
         records["closest_hit"] = dict(
             max_abs_err=hit_err, ms=batch["ms"], plain_ms=batch["plain_ms"],
@@ -671,7 +679,8 @@ def main_path(device):
 
     def plain_fn(o, d, g, tile_r=None):
         return intersect_fused(o, d, r.bvh.clusters, r.bvh.wrows,
-                               tile_r or TILE_R, plain=True)
+                               tile_r or TILE_R, plain=True,
+                               crows=r.bvh.crows)
 
     pos, rot = r.camera.snapshot()
     for mode in range(3, 7):
@@ -703,7 +712,7 @@ def plain_fns(bvh):
     versions, on the card: the reference frames are rendered with them."""
     def intersect(o, d, geo, tile_r=None):
         return intersect_fused(o, d, bvh.clusters, bvh.wrows, tile_r or TILE_R,
-                               plain=True, srows=bvh.srows)
+                               plain=True, srows=bvh.srows, crows=bvh.crows)
 
     def factory(geo):
         def occluded(o, d, t_max):
@@ -757,7 +766,7 @@ def small_shadow_batch(device):
     x = kernel_inputs(*SMALL_SCENE, device)
     n = x["o"].shape[0]
     hit = intersect_fused(x["o"], x["d"], x["bvh"].clusters, x["wrows"],
-                          x["tile_r"])
+                          x["tile_r"], crows=x["bvh"].crows)
     p = x["o"] + x["d"] * torch.where(hit.mask, hit.t, 0.0)[:, None]
     light = torch.tensor(x["lights"][0].position, device=device)
     to_l = light - p
@@ -1507,15 +1516,15 @@ def oracles_path(r, card):
     require(int(ref.mask.sum()) > 0, "the small scene's rays hit nothing")
     lbvh = build_lbvh(geo)
     lists = ci.bin_lists(x["tp"], x["cb"], plain=True)
-    bt, bs = ci.closest_hit_plain(o, d, x["t_init"], x["wrows"], *lists[:3],
-                                  tile_r)
+    bt, bs = ci.closest_hit_plain(o, d, x["t_init"], x["wrows"], bvh.crows,
+                                  *lists[:3], tile_r)
     plain = dataclasses.replace(
         ref, t=torch.where(bs >= 0, bt, float("inf")), tri=bs)
     for label, got in (
             ("traverse_closest over build_lbvh", traverse_closest(o, d, lbvh)),
             ("intersect_clustered", intersect_clustered(o, d, bvh.clusters)),
             ("intersect_fused", intersect_fused(o, d, bvh.clusters, x["wrows"],
-                                                tile_r)),
+                                                tile_r, crows=bvh.crows)),
             ("closest_hit_plain", plain),
             ("intersect_bruteforce", intersect_bruteforce(o, d, geo.woop))):
         hits_agree(label, got, ref)
@@ -1590,18 +1599,27 @@ def oracles_path(r, card):
 
 
 def closest_registers(log: str) -> dict:
-    """Registers of each closest_hit_kernel instantiation in the build
-    log (ptxas -v), keyed (rays a thread, count_exec)."""
-    regs, name = {}, None
+    """Registers, stack frame and spill store and load bytes of each
+    closest_hit_kernel instantiation in the build log (ptxas -v), keyed
+    (rays a thread, count_exec)."""
+    regs, name, frame = {}, None, None
     for text in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", text)
         if m:
-            name = m.group(1)
+            name, frame = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", text)
+        if m:
+            frame = tuple(int(g) for g in m.groups())
             continue
         m = re.search(r"Used (\d+) registers", text)
         k = re.search(r"closest_hit_kernelILi(\d+)E(?:Lb([01])E)?", name or "")
         if m and k:
-            regs[(int(k.group(1)), k.group(2) == "1")] = int(m.group(1))
+            stack, stores, loads = frame or (None, None, None)
+            regs[(int(k.group(1)), k.group(2) == "1")] = dict(
+                registers=int(m.group(1)), stack_frame=stack,
+                spill_stores=stores, spill_loads=loads)
             name = None
     return regs
 
@@ -1615,42 +1633,66 @@ def time_both(fa, fb, reps: int = KERNEL_REPS):
 
 def count_build_batch(label, b, launches, card):
     """closest_hit's counting build at one batch (a ci.ClosestQuery):
-    results bit-equal to the production build's, the plain walk's visits
-    <= executed <= counts per tile, executed == the plain visits with one
-    item a tile; timed beside the production build.  Returns the batch's
-    record and the largest t difference to the plain walk among equal
-    winners."""
+    results bit-equal to the production build's and to those of the
+    production build with cull boxes that drop nothing, the plain walk's
+    visits <= executed <= counts per tile, executed == the plain visits
+    with one item a tile, the 32-ray groups tested within [0, executed x
+    ceil(tile_r / 32)]; the cull share printed; timed beside the production
+    build, which is timed beside its run without the cull.  Returns the
+    batch's record and the largest t difference to the plain walk among
+    equal winners."""
     args, counts = b.args(), b.counts
+    nocull_args = (*args[:4], ci.unbounded_rows(args[4]), *args[5:])
     prod = ci.closest_hit(*args, width=b.width)
-    bt, bs, executed = ci.closest_hit(*args, width=b.width, count_exec=True)
+    nocull = ci.closest_hit(*nocull_args, width=b.width)
+    bt, bs, executed, tested = ci.closest_hit(*args, width=b.width,
+                                              count_exec=True)
     one = ci.closest_hit(*args, width=b.width, chunk=max(b.width, 1),
                          count_exec=True)[2]
     work = {}
-    bt_p, bs_p, plain = ci.closest_hit_plain(*args, stats=work, count_exec=True)
+    bt_p, bs_p, plain, plain_tested = ci.closest_hit_plain(
+        *args, stats=work, count_exec=True)
     torch.cuda.synchronize()
     same = (torch.equal(prod[0].view(torch.int32), bt.view(torch.int32))
             and torch.equal(prod[1], bs))
+    kept = (torch.equal(prod[0].view(torch.int32), nocull[0].view(torch.int32))
+            and torch.equal(prod[1], nocull[1]))
     below = int((plain > executed).sum())
     above = int((executed > counts).sum())
     equal = (one == plain).float().mean().item()
+    groups = -(-b.tile_r // ci.CULL_GROUP)
+    over = int(((tested < 0) | (tested > executed * groups)).sum())
+    cull = exec_stats.cull_share(int(tested.sum()), int(executed.sum()),
+                                 b.tile_r)
+    plain_cull = exec_stats.cull_share(int(plain_tested.sum()),
+                                       int(plain.sum()), b.tile_r)
     both = (bs >= 0) & (bs == bs_p)
     err = (bt[both] - bt_p[both]).abs().max().item() if both.any() else 0.0
     print(f"[{label}] closest_hit_exec: {counts.shape[0]} tiles x {b.tile_r} "
           f"rays; executed {int(executed.sum())}, plain walk {int(plain.sum())}, "
           f"scheduled {int(counts.sum())} visits; results bit-equal to the "
-          f"production build: {same}; tiles with executed < plain {below}, "
+          f"production build: {same}, and to the production build without "
+          f"the cull: {kept}; tiles with executed < plain {below}, "
           f"executed > counts {above}; one item a tile: executed == plain on "
-          f"{equal:.6f} of tiles")
+          f"{equal:.6f} of tiles; cull share {cull * 100:.2f}% "
+          f"({int(tested.sum())} of {int(executed.sum()) * groups} 32-ray "
+          f"groups tested), plain walk {plain_cull * 100:.2f}%")
     require(same, f"closest_hit_exec changes the results at the {label} batch")
+    require(kept, f"the cull changes closest_hit's results at the {label} batch")
     require(below == 0 and above == 0,
             f"closest_hit_exec at the {label} batch: {below} tiles below the "
             f"plain walk, {above} above their counts")
+    require(over == 0, f"closest_hit_exec at the {label} batch: {over} tiles "
+                       f"test more groups than their visits hold")
     require(equal >= EXEC_EQUAL_SHARE,
             f"closest_hit_exec with one item a tile equals the plain walk on "
             f"{equal} of tiles")
     prod_ms, ms = time_both(lambda: ci.closest_hit(*args, width=b.width),
                             lambda: ci.closest_hit(*args, width=b.width,
                                                    count_exec=True))
+    cull_ms, nocull_ms = time_both(
+        lambda: ci.closest_hit(*args, width=b.width),
+        lambda: ci.closest_hit(*nocull_args, width=b.width))
     plain_ms = time_ms(lambda: ci.closest_hit_plain(*args, count_exec=True), 1,
                        warmup=0)
     bound_ms, bound_by = bound(walk_bytes(args) + 8 * args[0].shape[0]
@@ -1661,10 +1703,42 @@ def count_build_batch(label, b, launches, card):
           f"medians in turns, CUDA events), plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}), {launches} launches on its path "
           f"[{card}]")
+    print(f"closest_hit at the {label} batch: {cull_ms:.4f} ms with the cull, "
+          f"{nocull_ms:.4f} ms with boxes that drop nothing "
+          f"({(cull_ms / nocull_ms - 1) * 100:+.1f}%; medians in turns, CUDA "
+          f"events) [{card}]")
     return dict(batch=label, launches=launches, ms=ms, production_ms=prod_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 executed=int(executed.sum()), plain_visits=int(plain.sum()),
-                scheduled=int(counts.sum()), one_item_equal=equal), err
+                scheduled=int(counts.sum()), one_item_equal=equal,
+                tested=int(tested.sum()), cull_share=cull,
+                plain_cull_share=plain_cull, cull_ms=cull_ms,
+                nocull_ms=nocull_ms), err
+
+
+def pt_bounce_batch(r):
+    """The first bounce pass's ray batch of one depth-4 path-traced sample
+    of ``r``'s frame (the incoherent case), as its query builds it, and the
+    counting build's launches on its path."""
+    pos, rot = r.camera.snapshot()
+    rays = []
+
+    def isect(o, d, geo, tile_r=None):
+        if len(rays) == 1:
+            rays.append((o.clone(), d.clone(), tile_r or TILE_R))
+        else:
+            rays.append(None)
+        return r.intersect_fn(o, d, geo, tile_r=tile_r)
+
+    before = trace.launches()
+    gen = torch.Generator(device=r.device).manual_seed(1)
+    pathtrace_tile(r.dscene, pos, rot, gen, r.width, r.height,
+                   max_depth=PT_DEPTH, intersect_fn=isect,
+                   occluder_factory=r.occluder_factory)
+    made = launched(before)["closest_hit_exec"]
+    require(len(rays) > 1 and rays[1] is not None,
+            "the PT sample ran no bounce pass")
+    return exec_stats.ray_batch(r, *rays[1]), made
 
 
 def bench_path(r, r_huge, frame_ms, card):
@@ -1725,14 +1799,16 @@ def tools_path(r, r_huge, frame_ms, card):
     made["100k 1080p Whitted bounce"] = launched(before)["closest_hit_exec"]
     bounce = exec_stats.ray_batch(r, *rays[1][:3])
     del rays, shadows
+    pt_bounce, made["100k 1080p PT bounce"] = pt_bounce_batch(r)
     batches, err = [], 0.0
     for label, b in (("100k 1080p primary", exec_stats.primary_batch(r)),
                      ("100k 1080p Whitted bounce", bounce),
-                     ("1M 1080p primary", exec_stats.primary_batch(r_huge))):
+                     ("1M 1080p primary", exec_stats.primary_batch(r_huge)),
+                     ("100k 1080p PT bounce", pt_bounce)):
         rec, e = count_build_batch(label, b, made[label], card)
         batches.append(rec)
         err = max(err, e)
-    del bounce
+    del bounce, pt_bounce
 
     micro = kernel_micro.run(r)
     require(micro["e_none_ms"] < micro["e_real_ms"] <= micro["e_all_ms"] * 1.05,
@@ -1861,8 +1937,8 @@ def main(argv=()) -> int:
     if log.exists():
         text = log.read_text().strip()
         print(text)
-        print(f"closest_hit_kernel registers (rays a thread, count_exec): "
-              f"{closest_registers(text)}")
+        print(f"closest_hit_kernel registers and spill bytes (rays a thread, "
+              f"count_exec): {closest_registers(text)}")
 
     if argv:  # phase 10 alone, for a host with a card a process
         n_tris, width, height = BIG_SCENE

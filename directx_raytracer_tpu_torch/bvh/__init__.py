@@ -25,6 +25,7 @@ from .clustered import (
 from .cuda_intersect import (
     TILE_R,
     cluster_rows,
+    cull_rows,
     intersect_fused,
     occluded_fused,
     super_rows,
@@ -38,13 +39,14 @@ from .traverse import traverse_closest, traverse_occluded
 class BVH:
     """Clusters plus the kernel operands made once per build: their
     (C, K, 12) triangle-major Woop rows (``woop_rows``: the clusters' Woop
-    blocks as they are, read by the closest-hit and any-hit walks) and
-    (8, S) superblock hull rows (``super_rows``, read by the superblock
-    binner)."""
+    blocks as they are, read by the closest-hit and any-hit walks), (8, S)
+    superblock hull rows (``super_rows``, read by the superblock binner)
+    and (C, 8) cull boxes (``cull_rows``, read by the closest-hit walk)."""
 
     clusters: ClusterSet
     wrows: torch.Tensor
     srows: torch.Tensor
+    crows: torch.Tensor
 
 
 def build_bvh(geometry, k: int = 128) -> BVH:
@@ -52,7 +54,8 @@ def build_bvh(geometry, k: int = 128) -> BVH:
     leaves, so clusters align with leaf boundaries), on the geometry's
     device."""
     cs = build_clusters(geometry, k=k)
-    return BVH(cs, woop_rows(cs), super_rows(cluster_rows(cs)))
+    wrows = woop_rows(cs)
+    return BVH(cs, wrows, super_rows(cluster_rows(cs)), cull_rows(wrows))
 
 
 def make_bvh_intersect_fn(bvh: BVH, use_kernels: bool = True,
@@ -68,7 +71,8 @@ def make_bvh_intersect_fn(bvh: BVH, use_kernels: bool = True,
     if use_kernels:
         def intersect(origins, dirs, geometry, tile_r=None):
             return intersect_fused(origins, dirs, bvh.clusters, bvh.wrows,
-                                   tile_r=tile_r or TILE_R, srows=bvh.srows)
+                                   tile_r=tile_r or TILE_R, srows=bvh.srows,
+                                   crows=bvh.crows)
     else:
         def intersect(origins, dirs, geometry, tile_r=None):
             return intersect_clustered(origins, dirs, bvh.clusters, block=block)

@@ -163,7 +163,7 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dxrt_bin_lists.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.dxrt_bin_lists.restype = i
-    lib.dxrt_closest_hit.argtypes = [p] * 11 + [i, i, i, i, i, f, i, p]
+    lib.dxrt_closest_hit.argtypes = [p] * 13 + [i, i, i, i, i, f, i, p]
     lib.dxrt_closest_hit.restype = i
     lib.dxrt_any_hit.argtypes = [p] * 10 + [i, i, i, i, f, i, p]
     lib.dxrt_any_hit.restype = i
@@ -464,6 +464,125 @@ def woop_rows(cs: ClusterSet) -> torch.Tensor:
     return cs.woop.reshape(c, k, 12).contiguous()
 
 
+CULL_GAMMA = 2.0 ** -16  # the cull boxes' margin per unit of error scale
+CULL_GROUP = 32  # rays a warp tests together in closest_hit (one warp's j-th)
+CULL_ROWS_CHUNK = 1024  # clusters a step of cull_rows' float64 bounds
+
+
+def cull_rows(wrows: torch.Tensor) -> torch.Tensor:
+    """(C, 8) f32 cull boxes [lo xyz | hi xyz | f | 0], one a cluster of
+    ``wrows`` (``woop_rows``): closest_hit tests a ray against a cluster's
+    triangles only if it meets the box grown by ``f * max|o|`` at some t in
+    [t_min, its best t].
+
+    The box must hold every point o + t d at which the Woop test accepts
+    one of the cluster's triangles, rounding included, so it is taken from
+    the f32 rows themselves, not from the scene's vertices: the triangle
+    each row maps to the unit triangle (inverted in float64), grown by a
+    bound on how far the test's f32 arithmetic can move an accepted point.
+    The test rounds each dot product of a row (a, a_w) with (o, 1) and t d
+    to within a few ulp of |a|_1 (|o| + |t d|) + |a_w|, and a Woop-space
+    error moves the world point by it times the columns e1, e2, n of the
+    row's inverse.  With |t d| <= |o| + |p| and |p| <= B, the box's largest
+    coordinate, that is at most CULL_GAMMA * (k1 * (2|o| + 2B) + k0) for
+
+        k1 = (|e1| + |e2|)(|a|_1 + |b|_1) + |n| |c|_1,
+        k0 = (|e1| + |e2|)(|a_w| + |b_w|) + |n| |c_w|     (max norms),
+
+    the largest over the cluster's triangles.  CULL_GAMMA = 2^-16 is 128
+    f32 ulp, several times the ulp the test's rounding can add up to.  A
+    slender triangle has a large k1 and widens its own cluster's box, never
+    another's.  Sentinel rows (zero linear part) never accept and add
+    nothing; a cluster of sentinels only has an empty box (lo > hi); a
+    cluster whose bound is not finite has an unbounded one.  Made once per
+    BVH (``build_bvh``); nothing of it runs a frame."""
+    c = wrows.shape[0]
+    # In chunks of clusters: the float64 temporaries of a 1M-triangle scene
+    # would take ~0.1 GB at once.
+    lo, hi, k1, k0, any_real = (torch.cat(x) for x in zip(*(
+        _woop_bounds(w) for w in wrows.split(CULL_ROWS_CHUNK))))
+    inf = float("inf")
+    big = torch.maximum(lo.abs(), hi.abs()).amax(dim=1)
+    pad = CULL_GAMMA * (2.0 * k1 * big + k0)
+    f = 2.0 * CULL_GAMMA * k1
+    bounded = torch.isfinite(pad) & torch.isfinite(f) & torch.isfinite(big)
+    grow = (any_real & bounded)[:, None]
+    unbounded = (any_real & ~bounded)[:, None]
+    lo = torch.where(unbounded, -inf, torch.where(grow, lo - pad[:, None], lo))
+    hi = torch.where(unbounded, inf, torch.where(grow, hi + pad[:, None], hi))
+    f = torch.where(grow[:, 0], f, 0.0)
+    # To f32, rounded outward (f up).
+    down = torch.tensor(-inf, dtype=torch.float32, device=wrows.device)
+    lo32, hi32, f32 = lo.float(), hi.float(), f.float()
+    lo32 = torch.where(lo32.double() > lo, torch.nextafter(lo32, down), lo32)
+    hi32 = torch.where(hi32.double() < hi, torch.nextafter(hi32, -down), hi32)
+    f32 = torch.where(f32.double() < f, torch.nextafter(f32, -down), f32)
+    return torch.cat([lo32, hi32, f32[:, None], f32.new_zeros((c, 1))],
+                     dim=1).contiguous()
+
+
+def unbounded_rows(crows: torch.Tensor) -> torch.Tensor:
+    """Cull boxes of ``crows``' shape that drop nothing: closest_hit then
+    runs every ray's tests at every visit, as a walk without the cull
+    would (the reference the cull's checks hold it to)."""
+    inf = float("inf")
+    box = torch.tensor([-inf, -inf, -inf, inf, inf, inf, 0.0, 0.0],
+                       device=crows.device)
+    return box.expand(crows.shape).contiguous()
+
+
+def _woop_bounds(wrows):
+    """``cull_rows``' float64 bounds of clusters ``wrows`` (C, K, 12): the
+    box (C, 3) x 2 of the triangles the rows map to the unit triangle, k1
+    and k0 (C,), and whether a cluster has a non-sentinel row (C,)."""
+    c, k, _ = wrows.shape
+    w = wrows.to(torch.float64).reshape(c, k, 3, 4)
+    m, tr = w[..., :3], w[..., 3]
+    r0, r1, r2 = m.unbind(dim=-2)
+    # The inverse's columns: e1, e2, n = (r1 x r2, r2 x r0, r0 x r1) / det.
+    cols = torch.stack([torch.linalg.cross(r1, r2), torch.linalg.cross(r2, r0),
+                        torch.linalg.cross(r0, r1)], dim=-2)  # (C, K, 3, 3)
+    det = (r0 * cols[..., 0, :]).sum(dim=-1)
+    real = m.ne(0).flatten(-2).any(dim=-1)
+    cols = cols / torch.where(real, det, 1.0)[..., None, None]
+    v0 = -(tr[..., :, None] * cols).sum(dim=-2)  # -(tr_0 e1 + tr_1 e2 + tr_2 n)
+    verts = torch.stack([v0, v0 + cols[..., 0, :], v0 + cols[..., 1, :]])
+    inf = float("inf")
+    lo = torch.where(real[..., None], verts.amin(dim=0), inf).amin(dim=1)
+    hi = torch.where(real[..., None], verts.amax(dim=0), -inf).amax(dim=1)
+    cn = cols.abs().amax(dim=-1)  # (C, K, 3): |e1|, |e2|, |n|
+    rn = m.abs().sum(dim=-1)  # |a|_1, |b|_1, |c|_1
+    tn = tr.abs()
+    k1 = ((cn[..., 0] + cn[..., 1]) * (rn[..., 0] + rn[..., 1])
+          + cn[..., 2] * rn[..., 2])
+    k0 = ((cn[..., 0] + cn[..., 1]) * (tn[..., 0] + tn[..., 1])
+          + cn[..., 2] * tn[..., 2])
+    return (lo, hi, torch.where(real, k1, 0.0).amax(dim=1),
+            torch.where(real, k0, 0.0).amax(dim=1), real.any(dim=1))
+
+
+def cull_keep(o, d, best, box, t_min=T_MIN):
+    """The plain twin of closest_hit's cull: whether each ray (o, d) (..., 3)
+    meets the cull box ``box`` (..., 8) (a row of ``cull_rows``, broadcast
+    against the rays) grown by ``f * max|o|`` at some t in [t_min, best],
+    (...) bool.  The kernel's arithmetic, up to FMA contraction: a zero
+    direction component's infinite reciprocal gives +-inf or, in a face's
+    plane, NaN, which the NaN-dropping fmax/fmin keep."""
+    po = box[..., 6] * o.abs().amax(dim=-1)
+    lo = box[..., 0:3] - po[..., None] - o
+    hi = box[..., 3:6] + po[..., None] - o
+    inv = 1.0 / d
+    tl, th = lo * inv, hi * inv
+    neg = torch.signbit(d)
+    near, far = torch.where(neg, th, tl), torch.where(neg, tl, th)
+    entry = torch.full_like(best, t_min)
+    exit_ = best.clone()
+    for ax in range(3):
+        entry = torch.fmax(entry, near[..., ax])
+        exit_ = torch.fmin(exit_, far[..., ax])
+    return entry <= exit_
+
+
 def _woop_tests(w, o, d, sel):
     """t, u, v of the tiles ``sel``'s rays against clusters ``w`` (A, K,
     12): (A, R, K) each, today's formulas with an IEEE divide."""
@@ -480,21 +599,30 @@ def _woop_tests(w, o, d, sel):
     return t, u, v
 
 
-def closest_hit_plain(origins, dirs, init_t, wrows, visit, ventry, counts,
-                      tile_r: int, t_min=T_MIN, stats=None,
+def closest_hit_plain(origins, dirs, init_t, wrows, crows, visit, ventry,
+                      counts, tile_r: int, t_min=T_MIN, stats=None,
                       count_exec: bool = False):
     """Plain torch version of ``closest_hit``: the same per-tile walk, one
     list position at a time for all live tiles at once (in chunks of
     ``PLAIN_CHUNK`` tiles to bound the (tiles, tile_r, K) temporaries).  Same
     float-op order as the kernel up to FMA contraction.  Returns best_t
-    (N,) f32 and best_slot (N,) i32, and with ``count_exec`` each tile's
-    visits (T,) i32: the list positions its walk executed.
+    (N,) f32 and best_slot (N,) i32; with ``count_exec`` also each tile's
+    visits (T,) i32, the list positions its walk executed, and tested (T,)
+    i32, the 32-ray groups of its visits in which a ray passes the kernel's
+    cull (``cull_keep`` against ``crows``, ``cull_rows(wrows)``, at the
+    walk's best t).  The walk tests every ray of a visit whatever the cull
+    says, so its results are the reference the cull is held to.
 
     ``stats``, a dict, gets the work the walk's early-out leaves: the
-    (tile, cluster) pairs visited under ``"visits"`` and the (ray,
-    triangle) tests they need under ``"tests"``."""
+    (tile, cluster) pairs visited under ``"visits"``, the (ray, triangle)
+    tests they need under ``"tests"``, and under ``"kept_tests"`` those of
+    the 32-ray groups the cull keeps."""
     tiles = counts.shape[0]
     visits = torch.zeros((tiles,), dtype=torch.int32, device=origins.device)
+    tested = torch.zeros_like(visits)
+    groups = -(-tile_r // CULL_GROUP)
+    group_rays = (tile_r - CULL_GROUP * torch.arange(
+        groups, device=origins.device)).clamp(max=CULL_GROUP)
     k = wrows.shape[1]
     o = origins.reshape(tiles, tile_r, 3)
     d = dirs.reshape(tiles, tile_r, 3)
@@ -515,16 +643,26 @@ def closest_hit_plain(origins, dirs, init_t, wrows, visit, ventry, counts,
             stats["tests"] = stats.get("tests", 0) + idx.numel() * tile_r * k
         for sel in idx.split(PLAIN_CHUNK):
             cl = visit[sel, i]
+            bt, bs = best_t[sel], best_slot[sel]
+            if count_exec or stats is not None:
+                keep = cull_keep(o[sel], d[sel], bt, crows[cl.long(), None],
+                                 t_min)
+                keep = torch.nn.functional.pad(keep, (0, groups * CULL_GROUP
+                                                      - tile_r))
+                kept = keep.reshape(-1, groups, CULL_GROUP).any(dim=2)
+                tested[sel] += kept.sum(dim=1, dtype=torch.int32)
+                if stats is not None:
+                    stats["kept_tests"] = (stats.get("kept_tests", 0)
+                                           + int((kept * group_rays).sum()) * k)
             t, u, v = _woop_tests(wrows[cl.long()], o, d, sel)
             ok = (u >= 0) & (v >= 0) & (1.0 - u - v >= 0) & (t >= t_min)
             tk, ik = torch.where(ok, t, float("inf")).min(dim=2)  # lowest k on ties
             slot = cl[:, None] * k + kk[ik]
-            bt, bs = best_t[sel], best_slot[sel]
             closer = (tk < bt) | ((tk == bt) & (slot < bs))
             best_t[sel] = torch.where(closer, tk, bt)
             best_slot[sel] = torch.where(closer, slot, bs)
     if count_exec:
-        return best_t.reshape(-1), best_slot.reshape(-1), visits
+        return best_t.reshape(-1), best_slot.reshape(-1), visits, tested
     return best_t.reshape(-1), best_slot.reshape(-1)
 
 
@@ -546,20 +684,26 @@ def unpack_keys(keys: torch.Tensor):
     return words[:, 1].view(torch.float32), words[:, 0] - 1
 
 
-def closest_hit(origins, dirs, init_t, wrows, visit, ventry, counts,
+def closest_hit(origins, dirs, init_t, wrows, crows, visit, ventry, counts,
                 tile_r: int, t_min=T_MIN, chunk: int = CLOSEST_CHUNK,
                 width=None, count_exec: bool = False):
     """Closest hit of every ray over its tile's visit list: the
     ``closest_hit`` kernel for CUDA tensors, its plain version for CPU
     tensors.  Returns best_t (N,) f32 and best_slot (N,) i32 (-1: no hit
-    closer than the seed).  Seeds must be >= 0 (``pack_keys``).
+    closer than the seed).  Seeds must be >= 0 (``pack_keys``).  ``crows``
+    is ``cull_rows(wrows)``: at each visit a warp runs the triangle tests
+    of its j-th rays only if one of them meets the cluster's cull box
+    before its best t; the results are those of a walk that tests every
+    ray.
 
     ``count_exec=True`` launches the kernel's counting build (counted as
     "closest_hit_exec"; the same results) and also returns executed (T,)
     i32, the list positions each tile's work items executed (passed the
     early-out gate): between the plain walk's visits and the counts, equal
-    to the visits with one item a tile (``chunk`` >= ``width``).  On CPU
-    tensors it is the plain walk's visits.
+    to the visits with one item a tile (``chunk`` >= ``width``); and tested
+    (T,) i32, the 32-ray groups of those visits whose triangle tests ran,
+    at most executed x ceil(tile_r / 32).  On CPU tensors they are the
+    plain walk's (``closest_hit_plain``).
 
     ``visit``/``ventry`` (T, stride) hold each tile's list in its first
     counts[t] positions (nothing past them is read); ``width``, at least
@@ -572,8 +716,9 @@ def closest_hit(origins, dirs, init_t, wrows, visit, ventry, counts,
     gains no host sync.  A list longer than 24 K chunks (K the cluster
     width) takes longer chunks."""
     if origins.device.type == "cpu":
-        return closest_hit_plain(origins, dirs, init_t, wrows, visit, ventry,
-                                 counts, tile_r, t_min, count_exec=count_exec)
+        return closest_hit_plain(origins, dirs, init_t, wrows, crows, visit,
+                                 ventry, counts, tile_r, t_min,
+                                 count_exec=count_exec)
     if not 1 <= tile_r <= MAX_TILE_R:
         raise ValueError(f"tile_r {tile_r} outside [1, {MAX_TILE_R}]")
     if chunk < 1:
@@ -589,12 +734,17 @@ def closest_hit(origins, dirs, init_t, wrows, visit, ventry, counts,
     _check("dirs", dirs, torch.float32, (n, 3), dev)
     _check("init_t", init_t, torch.float32, (n,), dev)
     _check("wrows", wrows, torch.float32, (c, k, 12), dev)
+    _check("crows", crows, torch.float32, (c, 8), dev)
+    if crows.data_ptr() % 16:
+        raise ValueError("crows: not 16-byte aligned")
     _check("visit", visit, torch.int32, (tiles, stride), dev)
     _check("ventry", ventry, torch.float32, (tiles, stride), dev)
     _check("counts", counts, torch.int32, (tiles,), dev)
     keys = pack_keys(init_t)
-    executed = (torch.zeros((tiles,), dtype=torch.int32, device=dev)
-                if count_exec else None)
+    executed = tested = None
+    if count_exec:
+        executed = torch.zeros((tiles,), dtype=torch.int32, device=dev)
+        tested = torch.zeros((tiles,), dtype=torch.int32, device=dev)
     if tiles:
         # The kernel's counting sort holds depths + 1 <= 24 K ints.
         chunk = max(chunk, -(-width // (24 * k - 1)))
@@ -607,15 +757,16 @@ def closest_hit(origins, dirs, init_t, wrows, visit, ventry, counts,
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.dxrt_closest_hit(
                 origins.data_ptr(), dirs.data_ptr(), wrows.data_ptr(),
-                visit.data_ptr(), ventry.data_ptr(), counts.data_ptr(),
-                order.data_ptr(), offs.data_ptr(), sched.data_ptr(),
-                keys.data_ptr(),
-                None if executed is None else executed.data_ptr(), tiles,
+                crows.data_ptr(), visit.data_ptr(), ventry.data_ptr(),
+                counts.data_ptr(), order.data_ptr(), offs.data_ptr(),
+                sched.data_ptr(), keys.data_ptr(),
+                None if executed is None else executed.data_ptr(),
+                None if tested is None else tested.data_ptr(), tiles,
                 depths, tile_r, stride, k, t_min, chunk, stream)
         _launched(lib, "closest_hit_exec" if count_exec else "closest_hit",
                   err)
     if count_exec:
-        return (*unpack_keys(keys), executed)
+        return (*unpack_keys(keys), executed, tested)
     return unpack_keys(keys)
 
 
@@ -771,13 +922,15 @@ def pad_and_seed(origins, dirs, cs: ClusterSet, tile_r: int):
 @dataclass
 class ClosestQuery:
     """A closest-hit query's operands: rays padded to whole tiles with
-    their seeds (``pad_and_seed``), each tile's visit list from
-    ``bin_lists`` (``width`` the longest list)."""
+    their seeds (``pad_and_seed``), the clusters' Woop rows and cull boxes,
+    each tile's visit list from ``bin_lists`` (``width`` the longest
+    list)."""
 
     origins: torch.Tensor
     dirs: torch.Tensor
     t_init: torch.Tensor
     wrows: torch.Tensor
+    crows: torch.Tensor
     visit: torch.Tensor
     ventry: torch.Tensor
     counts: torch.Tensor
@@ -786,33 +939,38 @@ class ClosestQuery:
 
     def args(self):
         """The positional operands of ``closest_hit``/``closest_hit_plain``."""
-        return (self.origins, self.dirs, self.t_init, self.wrows, self.visit,
-                self.ventry, self.counts, self.tile_r)
+        return (self.origins, self.dirs, self.t_init, self.wrows, self.crows,
+                self.visit, self.ventry, self.counts, self.tile_r)
 
 
 def closest_query(origins, dirs, cs: ClusterSet, wrows, tile_r: int = TILE_R,
-                  plain: bool = False, srows=None) -> ClosestQuery:
+                  plain: bool = False, srows=None, crows=None) -> ClosestQuery:
     """The closest-hit walk's operands for a ray batch: padded, seeded and
-    binned.  ``wrows``, ``srows`` and ``plain`` as in ``intersect_fused``.
-    Spans ``dxrt.query.stage`` (padding, seeds, tile and cluster rows) and
-    ``dxrt.query.bin`` (the lists and their width's read)."""
+    binned.  ``wrows``, ``srows``, ``crows`` and ``plain`` as in
+    ``intersect_fused``.  Spans ``dxrt.query.stage`` (padding, seeds, tile
+    and cluster rows) and ``dxrt.query.bin`` (the lists and their width's
+    read)."""
     with span("dxrt.query.stage"):
         origins, dirs, t_init = pad_and_seed(origins, dirs, cs, tile_r)
         tp, cb = tile_params(origins, dirs, tile_r), cluster_rows(cs)
+        crows = cull_rows(wrows) if crows is None else crows
     with span("dxrt.query.bin"):
         visit, ventry, counts, width = bin_lists(tp, cb, srows, plain=plain)
-    return ClosestQuery(origins, dirs, t_init, wrows, visit, ventry, counts,
-                        tile_r, width)
+    return ClosestQuery(origins, dirs, t_init, wrows, crows, visit, ventry,
+                        counts, tile_r, width)
 
 
 def intersect_fused(origins, dirs, cs: ClusterSet, wrows, tile_r: int = TILE_R,
-                    plain: bool = False, srows=None) -> Hit:
+                    plain: bool = False, srows=None, crows=None) -> Hit:
     """Closest hit via binning + the per-tile cluster walk.
 
-    ``wrows`` is ``woop_rows(cs)`` and ``srows`` optionally
+    ``wrows`` is ``woop_rows(cs)``, ``srows`` optionally
     ``super_rows(cluster_rows(cs))`` (built on demand when the cluster count
-    calls for the superblock binner).  Returns a Hit with the exact t and
-    slot (== triangle id: the geometry is treelet-ordered) and u = v = 0;
+    calls for the superblock binner) and ``crows`` optionally
+    ``cull_rows(wrows)``: left out, the query builds the boxes anew at each
+    call, so every caller that holds a BVH passes its ``crows``.  Returns a
+    Hit with the exact t and slot (== triangle id: the geometry is
+    treelet-ordered) and u = v = 0;
     ``ops.intersect.hit_record`` re-evaluates t/u/v and fetches the ids.
     ``plain=True`` runs the kernels' plain versions on any device (the
     reference the kernels are checked against on the card).  The walk
@@ -821,7 +979,7 @@ def intersect_fused(origins, dirs, cs: ClusterSet, wrows, tile_r: int = TILE_R,
     if not cs.identity_order:
         raise ValueError("intersect_fused needs treelet-ordered clusters")
     n = origins.shape[0]
-    q = closest_query(origins, dirs, cs, wrows, tile_r, plain, srows)
+    q = closest_query(origins, dirs, cs, wrows, tile_r, plain, srows, crows)
     with span("dxrt.query.walk"):
         best_t, best_slot = (closest_hit_plain(*q.args()) if plain
                              else closest_hit(*q.args(), width=q.width))

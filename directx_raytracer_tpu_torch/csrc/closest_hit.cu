@@ -17,17 +17,36 @@
 //
 // Layout: rays (N, 3) f32 origins/dirs, tile-major, N = T * tile_r; keys
 // (N,) u64, seeded by the caller with (bits(init_t) << 32) | 0.  Woop rows
-// (C, K, 12) f32 (walk.cuh).  Visit list (T, L) i32 cluster ids sorted by
+// (C, K, 12) f32 (walk.cuh); cull boxes (C, 8) f32 [lo xyz, hi xyz, f, 0]
+// (cuda_intersect.cull_rows).  Visit list (T, L) i32 cluster ids sorted by
 // entry, entries (T, L) f32, counts (T,) i32.  The schedule (order, offs):
 // item q at depth j (offs[j] <= q < offs[j + 1]) is tile order[q -
-// offs[j]].
+// offs[j]].  Ray ownership: warp w, lane l holds tile rays w * 32 R + 32 j
+// + l (R rays a thread, j < R), so a warp holds R * 32 consecutive rays:
+// three 32-pixel rows of a 24 x 32 primary tile, 32 Morton-consecutive
+// rays of a 256-ray bounce tile; each load of ray j is coalesced.
 //
 // What bounds it on the card.  Arithmetic, once the card is busy: a visit
 // reads 6 KB of L2-resident rows and then spends ~45 f32 operations on
-// each of tile_r x K (ray, triangle) pairs.  But a walk is serial, and a
-// few tiles of a Morton-sorted bounce batch bin hundreds of clusters (one
-// 1080p bounce tile bins 693): walked by one CTA, that tile held the launch
-// open for ~12 ms while the card idled.  So:
+// each (ray, triangle) pair it tests.  Most pairs of a visit cannot hit:
+// the tile's hull meets the cluster, but a ray passes its box only now and
+// then.  So each warp first slab-tests its rays against the cluster's cull
+// box (~40 operations a ray), up to the ray's best t (the lower of its own
+// and its merged key), and runs the K tests of its j-th rays only if one
+// of them needs the cluster (__any_sync: warp-uniform, nothing diverges in
+// the loop); a warp none of whose rays needs it goes straight to the next
+// barrier.  The box is the one the f32 Woop rows accept in, grown by a
+// bound on the test's rounding (cull_rows), so a pair the test would
+// accept at t <= best is never dropped: the results are those of testing
+// every ray, bit for bit.  On the 1080p batches the cull skips 42% (100k
+// primary), 51% (Whitted bounce), 61% (1M primary) and 90% (path-traced
+// bounce: its tiles list most clusters, its rays need few) of the
+// executed visits' 32-ray groups; the per-visit barrier, where a CTA waits
+// for its slowest warp, and the staging now take a larger share.  A walk
+// is serial, too, and a few tiles of a Morton-sorted bounce batch bin
+// hundreds of clusters (one 1080p bounce tile bins 693): walked by one
+// CTA, that tile held the launch open for ~12 ms while the card idled.
+// So:
 // * Work items.  Each list is cut into items of `chunk` positions (depth j
 //   covers positions [j * chunk, (j + 1) * chunk)), numbered depth by
 //   depth, tiles with the most items first within a depth.  CTA 0 builds
@@ -48,10 +67,11 @@
 // * The early-out gate of an item reads the tile's current keys (volatile
 //   loads, issued one visit ahead) before each visit: keys only fall, so
 //   the gate stays exact and tightens as the tile's near items finish.
-// * The memory path: the next cluster's rows are copied by cp.async into
-//   the other buffer of a two-buffer ring while this cluster is tested;
-//   one block barrier per visit.  Rows are read as three broadcast float4
-//   loads per triangle, shared by the thread's rays.
+// * The memory path: the next cluster's rows and cull box are copied by
+//   cp.async into the other buffer of a two-buffer ring while this cluster
+//   is tested; one block barrier per visit.  Rows are read as three
+//   broadcast float4 loads per triangle, shared by the thread's rays, the
+//   box as two.
 // Within a CTA: 256 threads, each owning up to 3 rays (768-ray tiles) in
 // registers, held to 64 registers so that 4 CTAs fit on an SM.
 //
@@ -63,6 +83,9 @@
 // executed (T,) i32, which the caller zeroes.  An item's gate is never
 // tighter than the serial walk's at the same position, so per tile the
 // plain walk's visits <= executed <= counts, equal with one item a tile.
+// It also adds the 32-ray groups whose tests ran into tested (T,) i32 (one
+// atomicAdd by lane 0 of each warp per item): at most executed x
+// ceil(tile_r / 32).
 //
 // Built without --use_fast_math: t needs an exact divide, and denormals
 // must not be flushed.
@@ -83,38 +106,86 @@ __device__ __forceinline__ float key_time(unsigned long long key) {
   return __uint_as_float(static_cast<uint32_t>(key >> 32));
 }
 
+// Start copying one cluster's cull box [lo xyz, hi xyz, f, 0] (``cull_rows``,
+// two float4 pieces) beside its rows; the next stage_cluster commits it.
+__device__ __forceinline__ void stage_box(float4* dst, const float4* src) {
+  if (threadIdx.x < 2) {
+    const uint32_t d = static_cast<uint32_t>(
+        __cvta_generic_to_shared(dst + threadIdx.x));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src + threadIdx.x)
+                 : "memory");
+  }
+}
+
+// Whether a ray can take a hit at t in [t_min, best] in the cluster of box
+// `box`: its slab test against the box grown by f * |o|_inf.  A zero
+// direction component gives an infinite reciprocal, so (l - o) * inv is
+// +-inf or, for a ray in a face's plane, NaN; fmaxf/fminf drop a NaN,
+// which keeps the ray (the plane lies in the closed box).  A lane past the
+// tile holds best = -inf and never needs a cluster.
+__device__ __forceinline__ bool needs_box(const float4* box, const Ray& r,
+                                          float best, float t_min) {
+  const float4 b0 = box[0], b1 = box[1];
+  const float po =
+      b1.z * fmaxf(fabsf(r.ox), fmaxf(fabsf(r.oy), fabsf(r.oz)));
+  float entry = t_min, exit = best;
+  const float lo[3] = {b0.x, b0.y, b0.z}, hi[3] = {b0.w, b1.x, b1.y};
+  const float o[3] = {r.ox, r.oy, r.oz}, d[3] = {r.dx, r.dy, r.dz};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float inv = __frcp_rn(d[a]);
+    const float tl = (lo[a] - po - o[a]) * inv;
+    const float th = (hi[a] + po - o[a]) * inv;
+    const bool neg = signbit(d[a]);
+    entry = fmaxf(entry, neg ? th : tl);
+    exit = fminf(exit, neg ? tl : th);
+  }
+  return entry <= exit;
+}
+
 // Walk list positions [start, end) of one tile, merging into its keys (and
-// with kCountExec adding the positions executed to executed[tile]).
+// with kCountExec adding the positions executed to executed[tile] and the
+// 32-ray groups whose triangle loop ran to tested[tile]).
 template <int kRaysPerThread, bool kCountExec>
 __device__ __forceinline__ void walk_item(
     const float* origins, const float* dirs, const float4* wrows,
-    const int* vlist, const float* elist, unsigned long long* keys,
-    int* executed, float4* s_ring, float (*s_max)[kWarps], int tile,
-    int start, int end, int tile_r, int k, float t_min) {
+    const float4* crows, const int* vlist, const float* elist,
+    unsigned long long* keys, int* executed, int* tested, float4* s_ring,
+    float (*s_max)[kWarps], int tile, int start, int end, int tile_r, int k,
+    float t_min) {
   const int tid = threadIdx.x;
-  const int pieces = 3 * k;
+  const int lane = tid & 31;
+  // The ring buffer of one cluster: its 3k rows, then its two box pieces.
+  const int pieces = 3 * k, stride = pieces + 2;
+  // Warp w holds the tile's rays [w * 32 * R, (w + 1) * 32 * R), ray j of a
+  // lane at r0 + 32 j: compact runs, so that a warp's rays tend to need
+  // the same clusters.
+  const int r0 = (tid >> 5) * 32 * kRaysPerThread + lane;
+  volatile unsigned long long* tkeys = keys + static_cast<size_t>(tile) * tile_r;
   Ray ray[kRaysPerThread];
   float bt[kRaysPerThread], kt[kRaysPerThread];
   int bs[kRaysPerThread];
   bool improved[kRaysPerThread];
-  volatile unsigned long long* key[kRaysPerThread];
 #pragma unroll
   for (int j = 0; j < kRaysPerThread; ++j) {
-    const int r = tid + j * kThreads;
+    const int r = r0 + 32 * j;
     const bool live = r < tile_r;
-    const size_t i = static_cast<size_t>(tile) * tile_r + (live ? r : 0);
-    ray[j] = dxrt::load_ray(origins, dirs, i);
-    key[j] = live ? keys + i : nullptr;
+    ray[j] = dxrt::load_ray(origins, dirs,
+                            static_cast<size_t>(tile) * tile_r + (live ? r : 0));
     // Start from the ray's merged key: the seed (slot -1, so a hit at
     // exactly init_t is refused) or a hit of another item.  A lane past
     // the tile holds -inf: it never wins and never raises the gate.
-    const unsigned long long k0 = live ? *key[j] : 0ull;
+    const unsigned long long k0 = live ? tkeys[r] : 0ull;
     bt[j] = live ? key_time(k0) : -INFINITY;
     bs[j] = static_cast<int>(static_cast<uint32_t>(k0)) - 1;
     kt[j] = bt[j];
     improved[j] = false;
   }
+  int n_tested = 0;
 
+  // The box first: stage_cluster's commit group takes its copies too.
+  stage_box(s_ring + pieces, crows + 2 * static_cast<size_t>(vlist[start]));
   dxrt::stage_cluster(s_ring, wrows + static_cast<size_t>(vlist[start]) * pieces,
                       pieces);
   int buf = 0;
@@ -128,7 +199,7 @@ __device__ __forceinline__ void walk_item(
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if ((tid & 31) == 0) s_max[buf][tid >> 5] = m;
+    if (lane == 0) s_max[buf][tid >> 5] = m;
     dxrt::wait_staged();
     // The one barrier of the visit: the staged rows and s_max are
     // complete, and every thread is done with the other ring buffer.
@@ -138,16 +209,32 @@ __device__ __forceinline__ void walk_item(
     for (int q = 1; q < kWarps; ++q) gate = fmaxf(gate, s_max[buf][q]);
     // Every thread reads the same values: the break is block-uniform.
     if (elist[i] > gate) break;
-    if (i + 1 < end)
-      dxrt::stage_cluster(s_ring + (buf ^ 1) * pieces,
-                          wrows + static_cast<size_t>(vlist[i + 1]) * pieces,
+    if (i + 1 < end) {
+      const int next = vlist[i + 1];
+      float4* dst = s_ring + (buf ^ 1) * stride;
+      stage_box(dst + pieces, crows + 2 * static_cast<size_t>(next));
+      dxrt::stage_cluster(dst, wrows + static_cast<size_t>(next) * pieces,
                           pieces);
+    }
+    const float4* w = s_ring + buf * stride;
+    // The cull: ray j of the warp runs this cluster's tests iff one of the
+    // warp's j-th rays can still take a hit in its box.  Warp-uniform, so
+    // nothing diverges inside the loop.
+    bool run[kRaysPerThread];
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < kRaysPerThread; ++j) {
+      run[j] = __any_sync(0xffffffffu, needs_box(w + pieces, ray[j],
+                                                 fminf(bt[j], kt[j]), t_min));
+      any |= run[j];
+      if constexpr (kCountExec) n_tested += run[j];
+    }
     // The next gate's keys, loaded while this cluster is tested.
 #pragma unroll
     for (int j = 0; j < kRaysPerThread; ++j)
-      if (key[j]) kt[j] = key_time(*key[j]);
+      if (r0 + 32 * j < tile_r) kt[j] = key_time(tkeys[r0 + 32 * j]);
+    if (!any) continue;
 
-    const float4* w = s_ring + buf * pieces;
     const int slot0 = vlist[i] * k;
     for (int kk = 0; kk < k; ++kk) {
       const float4 a = w[3 * kk], b = w[3 * kk + 1], c = w[3 * kk + 2];
@@ -155,7 +242,7 @@ __device__ __forceinline__ void walk_item(
 #pragma unroll
       for (int j = 0; j < kRaysPerThread; ++j) {
         float t;
-        if (dxrt::woop_test(a, b, c, ray[j], t_min, t) &&
+        if (run[j] && dxrt::woop_test(a, b, c, ray[j], t_min, t) &&
             (t < bt[j] || (t == bt[j] && slot < bs[j]))) {
           bt[j] = t;
           bs[j] = slot;
@@ -165,13 +252,15 @@ __device__ __forceinline__ void walk_item(
     }
   }
   // The break is block-uniform, so every thread holds the same i.
-  if constexpr (kCountExec)
+  if constexpr (kCountExec) {
     if (tid == 0 && i > start) atomicAdd(executed + tile, i - start);
+    if (lane == 0 && n_tested > 0) atomicAdd(tested + tile, n_tested);
+  }
 
 #pragma unroll
   for (int j = 0; j < kRaysPerThread; ++j)
     if (improved[j])
-      atomicMin(const_cast<unsigned long long*>(key[j]),
+      atomicMin(const_cast<unsigned long long*>(tkeys + r0 + 32 * j),
                 (static_cast<unsigned long long>(__float_as_uint(bt[j])) << 32) |
                     static_cast<uint32_t>(bs[j] + 1));
 }
@@ -213,14 +302,15 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 closest_hit_kernel(const float* __restrict__ origins,
                    const float* __restrict__ dirs,
                    const float4* __restrict__ wrows,
+                   const float4* __restrict__ crows,
                    const int* __restrict__ visit,
                    const float* __restrict__ ventry,
                    const int* __restrict__ counts, int* order, int* offs,
                    int* sched, unsigned long long* keys, int* executed,
-                   int n_tiles,
+                   int* tested, int n_tiles,
                    int n_depths, int tile_r, int list_len, int k, float t_min,
                    int chunk) {
-  extern __shared__ float4 s_ring[];  // two buffers of 3 * k float4
+  extern __shared__ float4 s_ring[];  // two buffers of 3 * k + 2 float4
   __shared__ float s_max[2][kWarps];
   __shared__ int s_item;
   const int tid = threadIdx.x;
@@ -256,69 +346,73 @@ closest_hit_kernel(const float* __restrict__ origins,
     const int tile = __ldcg(order + item - __ldcg(offs + depth));
     const int start = depth * chunk;
     walk_item<kRaysPerThread, kCountExec>(
-        origins, dirs, wrows, visit + static_cast<size_t>(tile) * list_len,
-        ventry + static_cast<size_t>(tile) * list_len, keys, executed, s_ring,
-        s_max, tile, start, min(start + chunk, counts[tile]), tile_r, k,
+        origins, dirs, wrows, crows,
+        visit + static_cast<size_t>(tile) * list_len,
+        ventry + static_cast<size_t>(tile) * list_len, keys, executed, tested,
+        s_ring, s_max, tile, start, min(start + chunk, counts[tile]), tile_r, k,
         t_min);
   }
 }
 
+// The launch's operands, as dxrt_closest_hit takes them.
+struct Args {
+  const float* origins;
+  const float* dirs;
+  const float* wrows;
+  const float* crows;
+  const int* visit;
+  const float* ventry;
+  const int* counts;
+  int* order;
+  int* offs;
+  int* sched;
+  unsigned long long* keys;
+  int* executed;
+  int* tested;
+  int n_tiles, n_depths, tile_r, list_len, k;
+  float t_min;
+  int chunk;
+};
+
 template <int kRaysPerThread, bool kCountExec>
-int launch(const float* origins, const float* dirs, const float* wrows,
-           const int* visit, const float* ventry, const int* counts,
-           int* order, int* offs, int* sched, unsigned long long* keys,
-           int* executed, int n_tiles, int n_depths, int tile_r, int list_len,
-           int k, float t_min, int chunk, cudaStream_t stream) {
+int launch(const Args& a, cudaStream_t stream) {
   const auto kernel = closest_hit_kernel<kRaysPerThread, kCountExec>;
-  const size_t smem = sizeof(float4) * 2 * 3 * k;
+  const size_t smem = sizeof(float4) * 2 * (3 * a.k + 2);
   // The CTAs that fit on the card at once, asked once per device and k:
   // every CTA of the grid is resident, so none waits for an undispatched
   // CTA 0.
   static int cached_dev = -1, cached_k = -1, resident = 1;
   int dev = 0;
   cudaGetDevice(&dev);
-  if (dev != cached_dev || k != cached_k) {
+  if (dev != cached_dev || a.k != cached_k) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
                                                   smem);
     resident = std::max(1, sms * std::min(per_sm, kCtasPerSm));
     cached_dev = dev;
-    cached_k = k;
+    cached_k = a.k;
   }
-  const long long max_items = static_cast<long long>(n_tiles) * n_depths;
+  const long long max_items = static_cast<long long>(a.n_tiles) * a.n_depths;
   const int grid =
       static_cast<int>(std::max(1LL, std::min<long long>(max_items, resident)));
   kernel<<<grid, kThreads, smem, stream>>>(
-      origins, dirs, reinterpret_cast<const float4*>(wrows), visit, ventry,
-      counts, order, offs, sched, keys, executed, n_tiles, n_depths, tile_r,
-      list_len, k, t_min, chunk);
+      a.origins, a.dirs, reinterpret_cast<const float4*>(a.wrows),
+      reinterpret_cast<const float4*>(a.crows), a.visit, a.ventry, a.counts,
+      a.order, a.offs, a.sched, a.keys, a.executed, a.tested, a.n_tiles,
+      a.n_depths, a.tile_r, a.list_len, a.k, a.t_min, a.chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kCountExec>
-int dispatch(const float* origins, const float* dirs, const float* wrows,
-             const int* visit, const float* ventry, const int* counts,
-             int* order, int* offs, int* sched, unsigned long long* keys,
-             int* executed, int n_tiles, int n_depths, int tile_r,
-             int list_len, int k, float t_min, int chunk,
-             cudaStream_t stream) {
-  switch ((tile_r + kThreads - 1) / kThreads) {
+int dispatch(const Args& a, cudaStream_t stream) {
+  switch ((a.tile_r + kThreads - 1) / kThreads) {
     case 1:
-      return launch<1, kCountExec>(origins, dirs, wrows, visit, ventry,
-                                   counts, order, offs, sched, keys, executed,
-                                   n_tiles, n_depths, tile_r, list_len, k,
-                                   t_min, chunk, stream);
+      return launch<1, kCountExec>(a, stream);
     case 2:
-      return launch<2, kCountExec>(origins, dirs, wrows, visit, ventry,
-                                   counts, order, offs, sched, keys, executed,
-                                   n_tiles, n_depths, tile_r, list_len, k,
-                                   t_min, chunk, stream);
+      return launch<2, kCountExec>(a, stream);
     case 3:
-      return launch<3, kCountExec>(origins, dirs, wrows, visit, ventry,
-                                   counts, order, offs, sched, keys, executed,
-                                   n_tiles, n_depths, tile_r, list_len, k,
-                                   t_min, chunk, stream);
+      return launch<3, kCountExec>(a, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -326,29 +420,28 @@ int dispatch(const float* origins, const float* dirs, const float* wrows,
 
 }  // namespace
 
-// tile_r must lie in [1, 768]: a thread owns at most 3 rays.  n_depths =
+// tile_r must lie in [1, 768]: a thread owns at most 3 rays.  crows: (C, 8)
+// f32 cull boxes (``cull_rows``), 16-byte aligned.  n_depths =
 // ceil(list_len / chunk); CTA 0's counting sort takes n_depths + 1 ints of
 // the ring's shared memory (at most 24 k); two buffers of a cluster's
-// 3 * k float4 must fit the default 48 KB (k <= 256).  order (T,) and offs
-// (n_depths + 1,) i32 are scratch; sched is two zeroed ints.  executed:
-// nullptr for the production build, else (T,) zeroed i32 for the counting
-// build.
+// 3 * k + 2 float4 must fit the default 48 KB (k <= 256).  order (T,) and
+// offs (n_depths + 1,) i32 are scratch; sched is two zeroed ints.
+// executed and tested: nullptr for the production build, else (T,) zeroed
+// i32 each for the counting build.
 extern "C" int dxrt_closest_hit(const float* origins, const float* dirs,
-                                const float* wrows, const int* visit,
-                                const float* ventry, const int* counts,
-                                int* order, int* offs, int* sched,
-                                unsigned long long* keys, int* executed,
-                                int n_tiles, int n_depths, int tile_r,
-                                int list_len, int k, float t_min, int chunk,
-                                cudaStream_t stream) {
+                                const float* wrows, const float* crows,
+                                const int* visit, const float* ventry,
+                                const int* counts, int* order, int* offs,
+                                int* sched, unsigned long long* keys,
+                                int* executed, int* tested, int n_tiles,
+                                int n_depths, int tile_r, int list_len, int k,
+                                float t_min, int chunk, cudaStream_t stream) {
   if (chunk < 1 || k < 1 || k > 256 || n_depths < 0 ||
-      n_depths + 1 > 24 * k)
+      n_depths + 1 > 24 * k || (executed == nullptr) != (tested == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (executed == nullptr)
-    return dispatch<false>(origins, dirs, wrows, visit, ventry, counts, order,
-                           offs, sched, keys, nullptr, n_tiles, n_depths,
-                           tile_r, list_len, k, t_min, chunk, stream);
-  return dispatch<true>(origins, dirs, wrows, visit, ventry, counts, order,
-                        offs, sched, keys, executed, n_tiles, n_depths,
-                        tile_r, list_len, k, t_min, chunk, stream);
+  const Args a{origins, dirs,     wrows,  crows,    visit,   ventry, counts,
+               order,   offs,     sched,  keys,     executed, tested, n_tiles,
+               n_depths, tile_r, list_len, k, t_min, chunk};
+  return executed == nullptr ? dispatch<false>(a, stream)
+                             : dispatch<true>(a, stream);
 }

@@ -160,7 +160,7 @@ def kernel_smoke(device="cuda", n_tris: int = 3_000, width: int = 64,
     o, dd = generate_rays_tiled(pos, rot, width, height, 8, 8, device=device)
     bvh = build_bvh(d.geometry)
     hp = intersect_fused(o, dd, bvh.clusters, bvh.wrows, tile_r=256,
-                         srows=bvh.srows)
+                         srows=bvh.srows, crows=bvh.crows)
     hb = intersect_bruteforce(o, dd, d.geometry.woop)
     mp, mb = hp.tri >= 0, hb.tri >= 0
     out = dict(hit_agree=(mp == mb).float().mean().item(), winner_agree=1.0,

@@ -12,9 +12,13 @@ launches the kernel's counting build (``closest_hit(count_exec=True)``)
 and prints, per scene: the scheduled visits (the listed clusters,
 ``counts.sum()``), the visits the kernel's items executed and their share,
 the visits of the plain in-order walk (``closest_hit_plain``), scheduled
-and executed (ray, triangle) pairs per ray, and the work items.  How much
-of the scheduled work the near-to-far early-out skips, and how much the
-split into parallel items gives back (executed - plain walk).
+and executed (ray, triangle) pairs per ray, the work items, and the cull
+share: the 32-ray groups of the executed visits whose triangle tests the
+kernel skipped, 1 - tested / (executed x ceil(tile_r / 32)), beside the
+plain walk's (the cull's plain twin at the serial walk's best t).  How much
+of the scheduled work the near-to-far early-out skips, how much the split
+into parallel items gives back (executed - plain walk), and how much of
+the rest the cull skips.
 
     python -m directx_raytracer_tpu_torch.tools.exec_stats [ntris ...]
         [--width 1920] [--height 1080] [--device cuda]
@@ -43,7 +47,7 @@ def ray_batch(r: Renderer, origins, dirs, tile_r: int) -> ci.ClosestQuery:
     """``origins``/``dirs`` padded, seeded and binned over ``r``'s BVH, as
     ``intersect_fused`` builds its query."""
     return ci.closest_query(origins, dirs, r.bvh.clusters, r.bvh.wrows, tile_r,
-                            srows=r.bvh.srows)
+                            srows=r.bvh.srows, crows=r.bvh.crows)
 
 
 def primary_batch(r: Renderer) -> ci.ClosestQuery:
@@ -61,12 +65,22 @@ def work_items(counts: torch.Tensor, chunk: int = ci.CLOSEST_CHUNK) -> int:
     return int(((counts.long() + chunk - 1) // chunk).sum())
 
 
+def cull_share(tested: int, visits: int, tile_r: int) -> float:
+    """The share of a batch's 32-ray groups, over ``visits`` visits, whose
+    triangle tests the cull skipped."""
+    groups = visits * -(-tile_r // ci.CULL_GROUP)
+    return 1.0 - tested / max(groups, 1)
+
+
 def count(b: ci.ClosestQuery) -> dict:
-    """Scheduled, executed and plain-walk visits of one batch (the
-    executed count from the kernel's counting build on the card, from the
-    plain walk on the CPU), with the per-tile tensors."""
-    _, _, executed = ci.closest_hit(*b.args(), width=b.width, count_exec=True)
-    _, _, plain = ci.closest_hit_plain(*b.args(), count_exec=True)
+    """Scheduled, executed and plain-walk visits of one batch and the cull
+    share of each (the executed count from the kernel's counting build on
+    the card, from the plain walk on the CPU), with the per-tile
+    tensors."""
+    _, _, executed, tested = ci.closest_hit(*b.args(), width=b.width,
+                                            count_exec=True)
+    _, _, plain, plain_tested = ci.closest_hit_plain(*b.args(),
+                                                     count_exec=True)
     k = b.wrows.shape[1]
     rays = b.origins.shape[0]
     scheduled = int(b.counts.sum())
@@ -77,7 +91,12 @@ def count(b: ci.ClosestQuery) -> dict:
                 share=done / max(scheduled, 1),
                 pairs_sched=scheduled * k * b.tile_r / rays,
                 pairs_exec=done * k * b.tile_r / rays,
-                executed_per_tile=executed, plain_per_tile=plain)
+                tested=int(tested.sum()), plain_tested=int(plain_tested.sum()),
+                cull=cull_share(int(tested.sum()), done, b.tile_r),
+                plain_cull=cull_share(int(plain_tested.sum()),
+                                      int(plain.sum()), b.tile_r),
+                executed_per_tile=executed, plain_per_tile=plain,
+                tested_per_tile=tested, plain_tested_per_tile=plain_tested)
 
 
 def line(label: str, c: dict, card: str) -> str:
@@ -85,7 +104,9 @@ def line(label: str, c: dict, card: str) -> str:
             f"scheduled visits={c['scheduled']} executed={c['executed']} "
             f"({c['share'] * 100:.1f}%) plain walk={c['plain']}; pairs/ray "
             f"sched={c['pairs_sched']:.1f} exec={c['pairs_exec']:.1f}; "
-            f"work items={c['items']}, longest list {c['longest']} [{card}]")
+            f"work items={c['items']}, longest list {c['longest']}; cull "
+            f"share {c['cull'] * 100:.1f}% ({c['tested']} 32-ray groups "
+            f"tested), plain walk {c['plain_cull'] * 100:.1f}% [{card}]")
 
 
 def run(r: Renderer, label: str | None = None) -> dict:

@@ -6,7 +6,8 @@ Counterpart of the repository's ``tools/kernel_micro.py``: three runs of
 the early-out gate reads:
 
 * ``E_real``: the entries ``bin_lists`` wrote (the production early-out);
-* ``E_all``: every entry -inf, so every listed cluster is walked;
+* ``E_all``: every entry -inf, so every listed cluster is visited (a
+  warp still skips the tests of a cluster its rays cannot hit, by the cull);
 * ``E_none``: every entry +inf, so every work item stops at its first
   position and tests nothing.
 
@@ -56,13 +57,13 @@ def split(e_real: float, e_all: float, e_none: float, items: int,
 def run(r: Renderer, reps: int = REPS) -> dict:
     """The three runs on ``r``'s primary batch; prints and returns them."""
     b = primary_batch(r)
-    o, d, t_init, wrows, visit, ventry, counts, tile_r = b.args()
+    o, d, t_init, wrows, crows, visit, ventry, counts, tile_r = b.args()
     entries = {"real": ventry,
                "all": torch.full_like(ventry, float("-inf")),
                "none": torch.full_like(ventry, float("inf"))}
     ms = {name: float(np.median(frame_times(
-              lambda e=e: ci.closest_hit(o, d, t_init, wrows, visit, e, counts,
-                                         tile_r, width=b.width),
+              lambda e=e: ci.closest_hit(o, d, t_init, wrows, crows, visit, e,
+                                         counts, tile_r, width=b.width),
               reps, r.device, WARMUP)))
           for name, e in entries.items()}
     items, listed = work_items(counts), int(counts.sum())

@@ -185,7 +185,7 @@ def test_walk_kernels_on_stride_lists(x):
     what they give on the plain version's compact lists."""
     tile_r = x["tile_r"]
     visit, ventry, counts, width = ci.bin_lists(x["tp"], x["cb"])
-    args = (x["o"], x["d"], x["t_init"], x["bvh"].wrows)
+    args = (x["o"], x["d"], x["t_init"], x["bvh"].wrows, x["bvh"].crows)
     got = ci.closest_hit(*args, visit, ventry, counts, tile_r, width=width)
     want = ci.closest_hit(*args, *x["lists"], tile_r)
     torch.cuda.synchronize()
@@ -205,7 +205,7 @@ def closest_vs_plain(x, tile_r, chunk=ci.CLOSEST_CHUNK):
     o, d, t_init = x["o"][:n], x["d"][:n], x["t_init"][:n]
     tp = ci.tile_params(o, d, tile_r)
     lists = ci.visit_lists(*ci.bin_clusters_plain(tp, x["cb"]))
-    args = (o, d, t_init, x["bvh"].wrows, *lists, tile_r)
+    args = (o, d, t_init, x["bvh"].wrows, x["bvh"].crows, *lists, tile_r)
     bt_k, bs_k = ci.closest_hit(*args, chunk=chunk)
     bt_p, bs_p = ci.closest_hit_plain(*args)
     torch.cuda.synchronize()
@@ -240,18 +240,21 @@ def test_closest_count_exec_build(x, tile_r, chunk):
     build's, per tile plain visits <= executed <= counts, and with one work
     item a tile (chunk None: the longest list) executed equal to the plain
     walk's visits on >= 99.9% of tiles (FMA contraction may flip a gate on
-    a knife-edge entry); launches counted as closest_hit_exec."""
+    a knife-edge entry); the 32-ray groups tested within [0, executed x
+    ceil(tile_r / 32)] per tile, fewer in all; launches counted as
+    closest_hit_exec."""
     n = x["o"].shape[0] // tile_r * tile_r
     o, d, t_init = x["o"][:n], x["d"][:n], x["t_init"][:n]
     visit, ventry, counts, width = ci.bin_lists(ci.tile_params(o, d, tile_r),
                                                 x["cb"])
-    args = (o, d, t_init, x["bvh"].wrows, visit, ventry, counts, tile_r)
+    args = (o, d, t_init, x["bvh"].wrows, x["bvh"].crows, visit, ventry,
+            counts, tile_r)
     chunk = max(width, 1) if chunk is None else chunk
     before = trace.launches()
     bt, bs = ci.closest_hit(*args, chunk=chunk, width=width)
-    bt_c, bs_c, executed = ci.closest_hit(*args, chunk=chunk, width=width,
-                                          count_exec=True)
-    _, _, plain = ci.closest_hit_plain(*args, count_exec=True)
+    bt_c, bs_c, executed, tested = ci.closest_hit(*args, chunk=chunk,
+                                                  width=width, count_exec=True)
+    _, _, plain, _ = ci.closest_hit_plain(*args, count_exec=True)
     torch.cuda.synchronize()
     assert trace.launches()["closest_hit"] == before["closest_hit"] + 1
     assert trace.launches()["closest_hit_exec"] == before["closest_hit_exec"] + 1
@@ -262,6 +265,72 @@ def test_closest_count_exec_build(x, tile_r, chunk):
     assert int(plain.sum()) > 0
     if chunk >= width:
         assert (executed == plain).float().mean() >= 0.999
+    groups = -(-tile_r // ci.CULL_GROUP)
+    assert tested.dtype == torch.int32 and tested.shape == counts.shape
+    assert bool((tested >= 0).all()) and bool((tested <= executed * groups).all())
+    assert 0 < int(tested.sum()) < int(executed.sum()) * groups
+
+
+def adversarial_batch(device, tile_r):
+    """The CPU tests' adversarial rays (tests/test_torch_closest_cull.py:
+    hits on vertices and edges, zero direction components, origins on a
+    face's plane or inside a box, slender triangles, a cluster at 1e3) in
+    tiles of ``tile_r``, each tile listing every cluster (entries 0, so
+    the gate never stops a walk), seeded at 1e4."""
+    from test_torch_closest_cull import adversarial_clusters, adversarial_rays
+
+    wrows, verts = adversarial_clusters()
+    o, d = adversarial_rays(verts)
+    n = o.shape[0] // tile_r * tile_r
+    tiles, c = n // tile_r, wrows.shape[0]
+    visit = torch.arange(c, dtype=torch.int32).expand(tiles, c).contiguous()
+    return tuple(a.to(device) if torch.is_tensor(a) else a for a in (
+        o[:n].contiguous(), d[:n].contiguous(), torch.full((n,), 1e4), wrows,
+        ci.cull_rows(wrows), visit, torch.zeros((tiles, c)),
+        torch.full((tiles,), c, dtype=torch.int32), tile_r))
+
+
+def batch_args(x, name, tile_r):
+    """closest_hit's operands of one batch on the card."""
+    if name == "adversarial":
+        return adversarial_batch(x["o"].device, tile_r)
+    n = x["o"].shape[0] // tile_r * tile_r
+    o, d, t_init = x["o"][:n], x["d"][:n], x["t_init"][:n]
+    if name == "bounce":  # from the primary hits, in random directions
+        hit = intersect_fused(o, d, x["bvh"].clusters, x["bvh"].wrows, tile_r,
+                              plain=True, crows=x["bvh"].crows)
+        p = o + d * torch.where(hit.mask, hit.t, 0.0)[:, None]
+        g = torch.Generator().manual_seed(2)
+        d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g),
+                                          dim=1).to(o.device)
+        o, d, t_init = ci.pad_and_seed(p + d * 1e-3, d, x["bvh"].clusters,
+                                       tile_r)
+    lists = ci.bin_lists(ci.tile_params(o, d, tile_r), x["cb"])[:3]
+    return (o, d, t_init, x["bvh"].wrows, x["bvh"].crows, *lists, tile_r)
+
+
+@pytest.mark.parametrize("chunk", [ci.CLOSEST_CHUNK, 1])
+@pytest.mark.parametrize("tile_r", [768, 640, 256, 100])
+@pytest.mark.parametrize("name", ["primary", "bounce", "adversarial"])
+def test_closest_cull_changes_no_result(x, name, tile_r, chunk):
+    """The kernel with the clusters' cull boxes against the same kernel with
+    boxes that drop nothing: best t and slot bit-equal, on the primary
+    batch, a mirror bounce batch and the adversarial batch; and the cull
+    skips groups on the primary batch (its counting build)."""
+    args = batch_args(x, name, tile_r)
+    bt, bs = ci.closest_hit(*args, chunk=chunk)
+    want_t, want_s = ci.closest_hit(*args[:4], ci.unbounded_rows(args[4]),
+                                    *args[5:], chunk=chunk)
+    _, _, executed, tested = ci.closest_hit(*args, chunk=chunk,
+                                            count_exec=True)
+    torch.cuda.synchronize()
+    assert int((want_s >= 0).sum()) > 100
+    assert torch.equal(bt.view(torch.int32), want_t.view(torch.int32))
+    assert torch.equal(bs, want_s)
+    groups = -(-tile_r // ci.CULL_GROUP)
+    assert bool((tested <= executed * groups).all())
+    if name == "primary":
+        assert int(tested.sum()) < int(executed.sum()) * groups
 
 
 def tie_tile(order, device, init_t=100.0):
@@ -280,10 +349,11 @@ def tie_tile(order, device, init_t=100.0):
     o[:, 2] = 2.0
     d = np.tile(np.array([[0.0, 0.0, -1.0]], np.float32), (tile_r, 1))
     t = torch.as_tensor(init_t, dtype=torch.float32).expand(tile_r)
+    wrows = torch.from_numpy(woop).reshape(2, k, 12)
     return tuple(a.to(device) if torch.is_tensor(a) else a for a in (
-        torch.from_numpy(o), torch.from_numpy(d), t.contiguous(),
-        torch.from_numpy(woop).reshape(2, k, 12),
-        torch.tensor([order], dtype=torch.int32), torch.zeros((1, 2)),
+        torch.from_numpy(o), torch.from_numpy(d), t.contiguous(), wrows,
+        ci.cull_rows(wrows), torch.tensor([order], dtype=torch.int32),
+        torch.zeros((1, 2)),
         torch.tensor([2], dtype=torch.int32), tile_r))
 
 
@@ -317,8 +387,8 @@ def test_closest_kernel_refuses_a_hit_at_the_seed(cuda, chunk):
 def test_wrappers_count_launches(x):
     before = trace.launches()
     ci.bin_lists(x["tp"], x["cb"])
-    ci.closest_hit(x["o"], x["d"], x["t_init"], x["bvh"].wrows, *x["lists"],
-                   x["tile_r"])
+    ci.closest_hit(x["o"], x["d"], x["t_init"], x["bvh"].wrows, x["bvh"].crows,
+                   *x["lists"], x["tile_r"])
     ci.bin_lists_plain(x["tp"], x["cb"])
     ci.bin_lists(x["tp"], x["cb"], plain=True)
     assert trace.launches()["bin_clusters"] == before["bin_clusters"] + 1
@@ -337,11 +407,15 @@ def test_wrappers_reject_bad_operands(x):
     with pytest.raises(ValueError):  # hull rows of another block size
         ci.bin_lists(x["tp"], x["cb"], ci.super_rows(x["cb"], 8), mode="super",
                      block=4)
-    args = [x["o"], x["d"], x["t_init"], x["bvh"].wrows, *x["lists"]]
+    args = [x["o"], x["d"], x["t_init"], x["bvh"].wrows, x["bvh"].crows,
+            *x["lists"]]
     with pytest.raises(ValueError):
         ci.closest_hit(*args, 1024)  # more rays per tile than the CTA holds
     with pytest.raises(ValueError):
-        ci.closest_hit(*args[:4], args[4].long(), *args[5:], x["tile_r"])
+        ci.closest_hit(*args[:5], args[5].long(), *args[6:], x["tile_r"])
+    with pytest.raises(ValueError):  # cull boxes of another shape
+        ci.closest_hit(*args[:4], args[4][:, :7].contiguous(), *args[5:],
+                       x["tile_r"])
 
 
 def test_frame_matches_plain(cuda):
@@ -355,7 +429,8 @@ def test_frame_matches_plain(cuda):
 
     def plain_fn(o, d, geo, tile_r=None):
         return intersect_fused(o, d, r.bvh.clusters, r.bvh.wrows,
-                               tile_r or TILE_R, plain=True)
+                               tile_r or TILE_R, plain=True,
+                               crows=r.bvh.crows)
 
     pos, rot = r.camera.snapshot()
     ref = render_debug(r.dscene, pos, rot, 5, W, H, intersect_fn=plain_fn,
@@ -369,7 +444,7 @@ def shadow_batch(x, light=(9.0, 7.0, 0.0)):
     the distance less twice the bias, 0 (disarmed) for misses."""
     n = x["o"].shape[0]
     hit = intersect_fused(x["o"], x["d"], x["bvh"].clusters, x["bvh"].wrows,
-                          x["tile_r"], plain=True)
+                          x["tile_r"], plain=True, crows=x["bvh"].crows)
     p = x["o"] + x["d"] * torch.where(hit.mask, hit.t, 0.0)[:, None]
     to_l = torch.tensor(light, device=p.device) - p
     dist = to_l.norm(dim=1)
@@ -443,7 +518,8 @@ def test_whitted_frame_matches_plain(cuda):
 
     def plain_isect(o, d, geo, tile_r=None):
         return intersect_fused(o, d, r.bvh.clusters, r.bvh.wrows,
-                               tile_r or TILE_R, plain=True)
+                               tile_r or TILE_R, plain=True,
+                               crows=r.bvh.crows)
 
     def plain_occ(geo):
         def occluded(o, d, t_max):
@@ -534,7 +610,7 @@ def test_pathtrace_sample_matches_plain(cuda):
 
     def plain_isect(o, d, geo, tile_r=None):
         return intersect_fused(o, d, bvh.clusters, bvh.wrows, tile_r or TILE_R,
-                               plain=True, srows=bvh.srows)
+                               plain=True, srows=bvh.srows, crows=bvh.crows)
 
     def plain_occ(geo):
         return lambda o, d, t_max: ci.occluded_fused(
@@ -600,7 +676,8 @@ def test_intersectors_agree_with_bruteforce_on_the_card(x, small, route):
     elif route == "intersect_clustered":
         got = intersect_clustered(o, d, bvh.clusters, block=1536)
     else:
-        got = intersect_fused(o, d, bvh.clusters, bvh.wrows, x["tile_r"])
+        got = intersect_fused(o, d, bvh.clusters, bvh.wrows, x["tile_r"],
+                              crows=bvh.crows)
     assert_hits_agree(got, small["ref"])
     # Only the fused route launches kernels: the oracles are plain torch.
     launched = trace.launches()["closest_hit"] - before["closest_hit"]

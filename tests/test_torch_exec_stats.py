@@ -99,8 +99,9 @@ def test_count_exec_matches_jax_kernel(fx, kind):
     count_exec build on the same lists and seeds.  With the scene-exit
     seeds the early-out fires (a tile stops short of its list)."""
     init_t = seeds(fx, kind)
-    _, _, port = ci.closest_hit(fx.o, fx.d, init_t, fx.wrows, fx.visit,
-                                fx.ventry, fx.counts, TILE_R, count_exec=True)
+    _, _, port, _ = ci.closest_hit(fx.o, fx.d, init_t, fx.wrows,
+                                   ci.cull_rows(fx.wrows), fx.visit, fx.ventry,
+                                   fx.counts, TILE_R, count_exec=True)
     port = port.numpy().astype(np.int64)
     want = jax_executed(fx, init_t)
     assert port.sum() > 0
@@ -118,8 +119,8 @@ def test_count_exec_leaves_results_unchanged(small, tile_r):
     b = exec_stats.ray_batch(small, *_primary_rays(small), tile_r)
     bt, bs = ci.closest_hit(*b.args(), width=b.width)
     stats = {}
-    bt2, bs2, visits = ci.closest_hit_plain(*b.args(), stats=stats,
-                                            count_exec=True)
+    bt2, bs2, visits, _ = ci.closest_hit_plain(*b.args(), stats=stats,
+                                               count_exec=True)
     assert torch.equal(bt.view(torch.int32), bt2.view(torch.int32))
     assert torch.equal(bs, bs2)
     assert visits.dtype == torch.int32 and visits.shape == b.counts.shape
@@ -149,7 +150,9 @@ def test_exec_stats_counts_the_primary_batch(small, capsys):
     assert c["pairs_sched"] == pytest.approx(float(b.counts.double().mean()) * 128)
     assert re.search(r"scheduled visits=\d+ executed=\d+ \(\d+\.\d%\) plain "
                      r"walk=\d+; pairs/ray sched=[\d.]+ exec=[\d.]+; work "
-                     r"items=\d+, longest list \d+ \[cpu\]",
+                     r"items=\d+, longest list \d+; cull share [\d.]+% "
+                     r"\(\d+ 32-ray groups tested\), plain walk [\d.]+% "
+                     r"\[cpu\]",
                      capsys.readouterr().out)
 
 

@@ -283,7 +283,7 @@ def test_closest_tie_goes_to_lower_slot(order):
     d = np.tile(np.array([[0.0, 0.0, -1.0]], np.float32), (tile_r, 1))
     best_t, best_slot = ci.closest_hit_plain(
         torch.from_numpy(o), torch.from_numpy(d),
-        torch.full((tile_r,), 100.0), wrows,
+        torch.full((tile_r,), 100.0), wrows, ci.cull_rows(wrows),
         torch.tensor([order], dtype=torch.int32), torch.zeros((1, 2)),
         torch.tensor([2], dtype=torch.int32), tile_r)
     assert (best_slot == 5).all()

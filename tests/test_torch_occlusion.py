@@ -194,19 +194,25 @@ def test_disarmed_lanes_stay_unblocked(fx):
 
 def test_plain_walks_count_their_work(fx):
     """``stats`` of the plain walks: the (tile, cluster) pairs the
-    early-out leaves and the (ray, triangle) tests they need, without
+    early-out leaves and the (ray, triangle) tests they need (for the
+    closest-hit walk also those of the 32-ray groups its cull keeps, one
+    group of 32 rays for each of its count's tested groups), without
     changing the result."""
     k = fx.wrows.shape[1]
     o, d, t_init = ci.pad_and_seed(fx.o, fx.d, fx.cs, ci.TILE_R)
     visit, ventry, counts = ci.visit_lists(*ci.bin_clusters_plain(
         ci.tile_params(o, d, ci.TILE_R), fx.cb))
-    args = (o, d, t_init, fx.wrows, visit, ventry, counts, ci.TILE_R)
+    args = (o, d, t_init, fx.wrows, ci.cull_rows(fx.wrows), visit, ventry,
+            counts, ci.TILE_R)
     stats = {}
     got = ci.closest_hit_plain(*args, stats=stats)
     for a, b in zip(got, ci.closest_hit_plain(*args)):
         assert torch.equal(a, b)
     assert 0 < stats["visits"] < int(counts.sum())  # the early-out bites
     assert stats["tests"] == stats["visits"] * ci.TILE_R * k
+    assert 0 < stats["kept_tests"] < stats["tests"]  # the cull bites
+    tested = ci.closest_hit_plain(*args, count_exec=True)[3]
+    assert stats["kept_tests"] == int(tested.sum()) * ci.CULL_GROUP * k
 
     tm = torch.where(torch.arange(fx.o.shape[0]) % 2 == 0, 25.0, 0.0)
     o, d, tm, *lists = ci.anyhit_schedule(fx.o, fx.d, tm, fx.cs)

@@ -244,7 +244,8 @@ def test_plain_versions_never_count_a_launch(renderer):
                                                   generator=torch.Generator().manual_seed(1)),
                                       dim=1)
     before = trace.launches()
-    ci.intersect_fused(o, d, bvh.clusters, bvh.wrows, 256, srows=bvh.srows)
+    ci.intersect_fused(o, d, bvh.clusters, bvh.wrows, 256, srows=bvh.srows,
+                       crows=bvh.crows)
     ci.occluded_fused(o, d, bvh.clusters, bvh.wrows, torch.full((768,), 5.0),
                       srows=bvh.srows)
     w, rays = pm.make_inputs(2, "cpu")

@@ -1,12 +1,14 @@
 """The redesigned closest-hit walk on the CPU: the packed (t, slot) keys,
 a plain emulation of the kernel's split walk (work items that walk
-independently, each with its own early-out gate, merged by the packed
-min), and the triangle-major Woop operand.
+independently, each with its own early-out gate and the cull of 32-ray
+groups by the clusters' boxes, merged by the packed min), and the
+triangle-major Woop operand.
 
 The emulation walks the items one after another, in the kernel's depth
 order and in reverse (far items first, with only the seeds to gate them),
-and must equal ``closest_hit_plain`` bit for bit: the split changes which
-clusters are visited, never the min.  Against the JAX package it meets
+and must equal ``closest_hit_plain`` bit for bit: the split and the cull
+change which clusters are visited and which rays test them, never the
+min.  Against the JAX package it meets
 the reference's gates (tests/test_pallas_interpret.py:57-68), as the fused
 query does in test_torch_intersect.py."""
 
@@ -103,18 +105,21 @@ def split_walk(args, chunk, reverse=False):
     """Plain emulation of the closest_hit kernel: each work item starts
     from its rays' merged keys, gates each visit on the largest of its
     rays' best t (its own or the merged key, whichever is lower), tests
-    the cluster as ``closest_hit_plain`` does, and merges the rays it
-    improved with a packed-key min.  Items run one after another, in the
-    kernel's depth order or reversed.  Returns best_t, best_slot and the
-    visits made."""
-    o, d, init_t, wrows, visit, ventry, counts, tile_r = args
+    the cluster as ``closest_hit_plain`` does but only in the 32-ray
+    groups where a ray passes the cull (``cull_keep`` at that best t), and
+    merges the rays it improved with a packed-key min.  Items run one after
+    another, in the kernel's depth order or reversed.  Returns best_t,
+    best_slot, the visits made and the 32-ray groups whose tests ran."""
+    o, d, init_t, wrows, crows, visit, ventry, counts, tile_r = args
     tiles, width = visit.shape
+    groups = torch.arange(tile_r) // ci.CULL_GROUP
+    n_groups = -(-tile_r // ci.CULL_GROUP)
     k = wrows.shape[1]
     o3 = o.reshape(tiles, tile_r, 3)
     d3 = d.reshape(tiles, tile_r, 3)
     keys = ci.pack_keys(init_t).reshape(tiles, tile_r)
     items = item_list(counts, width, chunk)
-    visits = 0
+    visits = tested = 0
     for tile, start in (reversed(items) if reverse else items):
         bt, bs = ci.unpack_keys(keys[tile])
         improved = torch.zeros(tile_r, dtype=torch.bool)
@@ -124,12 +129,18 @@ def split_walk(args, chunk, reverse=False):
                 break
             visits += 1
             cl = visit[tile, i]
+            keep = ci.cull_keep(o3[tile], d3[tile], torch.minimum(bt, kt),
+                                crows[cl.long()])
+            run = torch.zeros(n_groups, dtype=torch.bool)
+            run[groups[keep]] = True
+            tested += int(run.sum())
+            run = run[groups]
             t, u, v = ci._woop_tests(wrows[cl.long()][None], o3, d3,
                                      torch.tensor([tile]))
             ok = (u >= 0) & (v >= 0) & (1.0 - u - v >= 0) & (t >= T_MIN)
             tk, ik = torch.where(ok, t, float("inf")).min(dim=2)
             tk, slot = tk[0], cl * k + ik[0].to(torch.int32)
-            closer = (tk < bt) | ((tk == bt) & (slot < bs))
+            closer = run & ((tk < bt) | ((tk == bt) & (slot < bs)))
             bt = torch.where(closer, tk, bt)
             bs = torch.where(closer, slot, bs)
             improved |= closer
@@ -137,14 +148,15 @@ def split_walk(args, chunk, reverse=False):
         keys[tile] = torch.where(improved, torch.minimum(keys[tile], mine),
                                  keys[tile])
     best_t, best_slot = ci.unpack_keys(keys.reshape(-1))
-    return best_t, best_slot, visits
+    return best_t, best_slot, visits, tested
 
 
 def walk_args(fx, tile_r):
     o, d, t_init = ci.pad_and_seed(fx.o, fx.d, fx.cs, tile_r)
     visit, ventry, counts = ci.visit_lists(*ci.bin_clusters_plain(
         ci.tile_params(o, d, tile_r), ci.cluster_rows(fx.cs)))
-    return (o, d, t_init, fx.wrows, visit, ventry, counts, tile_r)
+    return (o, d, t_init, fx.wrows, ci.cull_rows(fx.wrows), visit, ventry,
+            counts, tile_r)
 
 
 @pytest.mark.parametrize("tile_r,chunk", [(768, 1), (768, 8), (256, 1),
@@ -154,25 +166,30 @@ def test_split_walk_equals_serial_walk(fx, tile_r, chunk, reverse):
     """bench_scene(3000) at 96x48: bit for bit the serial walk's result."""
     args = walk_args(fx, tile_r)
     stats = {}
-    want_t, want_slot = ci.closest_hit_plain(*args, stats=stats)
-    got_t, got_slot, visits = split_walk(args, chunk, reverse)
+    want_t, want_slot, _, want_tested = ci.closest_hit_plain(
+        *args, stats=stats, count_exec=True)
+    got_t, got_slot, visits, tested = split_walk(args, chunk, reverse)
     assert torch.equal(got_slot, want_slot)
     assert got_t.numpy().tobytes() == want_t.numpy().tobytes()
     assert (want_slot >= 0).sum() > 100
     # Walked one after another in depth order, each item starts from its
-    # near items' keys, so it visits what the serial walk visits; reversed,
-    # far items start from the seeds alone and visit more.
+    # near items' keys, so it visits what the serial walk visits, at the
+    # same best t, and culls the same groups; reversed, far items start
+    # from the seeds alone and visit more.
     if reverse:
         assert visits >= stats["visits"]
     else:
         assert visits == stats["visits"]
+        assert tested == int(want_tested.sum())
+    k = args[3].shape[1]
+    assert stats["kept_tests"] == int(want_tested.sum()) * ci.CULL_GROUP * k
 
 
 def test_split_walk_meets_pallas_gates(fx, j_pallas):
     """The emulated split walk against the TPU closest-hit kernel in
     interpret mode, under the reference's gates."""
     n = fx.o.shape[0]
-    t, slot, _ = split_walk(walk_args(fx, 768), 1)
+    t, slot, _, _ = split_walk(walk_args(fx, 768), 1)
     t, slot = t[:n], slot[:n]
     hit = ci.Hit(t=torch.where(slot >= 0, t, float("inf")), tri=slot,
                  u=torch.zeros_like(t), v=torch.zeros_like(t))
@@ -202,9 +219,9 @@ def long_list_tile(order, tie: bool):
     d = np.tile(np.array([[0.0, 0.0, -1.0]], np.float32), (tile_r, 1))
     visit = torch.tensor([order], dtype=torch.int32)
     entry = np.sort(rng.uniform(0, 19, len(order))).astype(np.float32)
+    wrows = torch.from_numpy(woop).reshape(c_n, K, 12)
     return (torch.from_numpy(o), torch.from_numpy(d),
-            torch.full((tile_r,), 100.0),
-            torch.from_numpy(woop).reshape(c_n, K, 12), visit,
+            torch.full((tile_r,), 100.0), wrows, ci.cull_rows(wrows), visit,
             torch.from_numpy(entry)[None],
             torch.tensor([len(order)], dtype=torch.int32), tile_r)
 
@@ -219,7 +236,7 @@ def test_split_walk_long_list(order, tie, reverse):
     across items the lower slot."""
     args = long_list_tile(order, tie)
     want_t, want_slot = ci.closest_hit_plain(*args)
-    got_t, got_slot, _ = split_walk(args, 1, reverse)
+    got_t, got_slot, _, _ = split_walk(args, 1, reverse)
     assert torch.equal(got_slot, want_slot)
     assert got_t.numpy().tobytes() == want_t.numpy().tobytes()
     assert (got_slot == 7).all()
