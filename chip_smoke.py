@@ -31,7 +31,8 @@ Phases, each of which raises (exit code != 0) on failure:
 6. the Whitted path: any_hit against its plain version on a 3k/96x48
    shadow batch; then one 1080p/100k Whitted frame whose batches are
    captured where the frame hands them over (the intersector's calls and
-   the occluder's, with the launches each made): the binning kernel at the
+   the occluder's, with the launches each made; shadow_keys and
+   shadow_rays must launch once each a shadow batch): the binning kernel at the
    bounce pass's batch and both shadow batches, any_hit at the primary
    and the bounce pass's shadow batches and closest_hit at the bounce
    pass's batch, each against its plain version and timed beside its
@@ -65,11 +66,16 @@ Phases, each of which raises (exit code != 0) on failure:
    plain versions and timed beside their bounds; the draw kernel pt_draws
    (one launch for the jitter, one a pass) at the queues the primary pass
    and the first bounce hand it, bit-equal to its twin pt_draws_plain
-   (and the jitter to jitter_plain), timed beside its bound; one profiled
-   sample for each pass's kernel ms; then the port's own entry point,
+   (and the jitter to jitter_plain), timed beside its bound; the shadow
+   batch's kernels shadow_keys and shadow_rays (one launch each a shadow
+   batch) at the operands the primary pass (2,073,600 points x 4 lights)
+   and the first bounce hand them, bit-equal to their plain chains on the
+   card, each timed beside its bound and the chain; one profiled sample
+   for each pass's kernel ms; then the port's own entry point,
    viewer.app.main(["pathtrace", "--builtin", "bench_scene", ...]) for 4
    samples with a checkpoint, counters reset just before and read just
-   after (bin_clusters, closest_hit, any_hit and pt_draws must launch):
+   after (bin_clusters, closest_hit, any_hit, pt_draws, shadow_keys and
+   shadow_rays must launch, the last two once each a shadow batch):
    the PNG must be what the checkpoint, loaded into a second PathTracer,
    gives, finite, non-negative and not all background; 8 depth-1 samples against the
    Whitted depth-1 frame (median abs error < 0.02 over the lit pixels
@@ -143,16 +149,20 @@ run's inputs; for closest_hit and any_hit from the pairs their plain walks
 visit (every ray of a visited tile, whatever closest_hit's cull skips),
 for the binning kernel from its slab tests and its sorting
 networks' compare-exchanges, for pt_draws from the 4 bytes read and 16
-written a row) and library_ms: null, since no single PyTorch
+written a row, for shadow_keys and shadow_rays from the bytes a point and
+a ray read and write) and library_ms: null, since no single PyTorch
 call computes any of these functions.  The lines of bin_clusters (the
 binning kernel's dense mode), bin_clusters_super (its superblock mode),
-closest_hit, any_hit and pt_draws also carry "batches", one record per batch they
+closest_hit, any_hit, pt_draws, shadow_keys and shadow_rays also carry
+"batches", one record per batch they
 serve (ms, plain_ms, bound_ms, bound_by and the launches on its path; the
 binning records also the layer's ms: the wrapper with its host sync, by
 CUDA events); their top-level numbers are
-the first batch's.  Each walk batch prints its work items, longest list,
-visited of binned pairs and (ray, triangle) tests.  The binning kernel's
-and pt_draws's ms is their device time from the profiler (torch.profiler's CUDA kernel
+the first batch's; the shadow kernels' plain_ms is their chain's, and
+their launches are the PT entry point's.  Each walk batch prints its work
+items, longest list, visited of binned pairs and (ray, triangle) tests.
+The binning kernel's, pt_draws's and the shadow kernels' ms is their
+device time from the profiler (torch.profiler's CUDA kernel
 records): CUDA events around one call of a launch this short would time
 the host's enqueue.  Each such window starts with 16 launches that are not
 timed and a pause, because the profiler loses the first records of a window,
@@ -203,6 +213,7 @@ from directx_raytracer_tpu_torch.io import crtscene
 from directx_raytracer_tpu_torch.models.material import MaterialType
 from directx_raytracer_tpu_torch.models.scene import build_device_scene
 from directx_raytracer_tpu_torch.ops import draws
+from directx_raytracer_tpu_torch.ops import shading as psh
 from directx_raytracer_tpu_torch.ops.debug_shading import MISS_COLOR
 from directx_raytracer_tpu_torch.ops.intersect import (hit_record,
                                                        intersect_bruteforce)
@@ -354,6 +365,14 @@ SORT_CE_OPS = 1
 # Bytes a row of the draw kernel moves (csrc/pt_draws.cu): its i32 pixel id
 # read, its four f32 draws written.
 DRAW_ROW_BYTES = 4 + 16
+# Bytes the shadow batch's kernels move (csrc/shadow_batch.cu): shadow_keys
+# reads a point's position, normal and mask byte and writes its i32 key and
+# f32 armed flag; shadow_rays reads those 25 bytes of a point once for all
+# its lights, and a ray's five f32 light terms, and writes the ray's
+# origin, direction and t_max.
+SHADOW_KEY_BYTES = 12 + 12 + 1 + 4 + 4
+SHADOW_POINT_BYTES = 12 + 12 + 1
+SHADOW_RAY_BYTES = 5 * 4 + 7 * 4
 
 
 def bound(nbytes: float, f32_ops: float, bf16_ops: float = 0.0):
@@ -884,11 +903,17 @@ def whitted_path(r, card):
     # (Morton-sorted, 4 lights x the pass's rays).
     isect, occf, rays, shadows = capturing(r)
     pos, rot = r.camera.snapshot()
+    before = trace.launches()
     render_whitted(r.dscene, pos, rot, width, height, max_depth=WHITTED_DEPTH,
                    intersect_fn=isect, occluder_factory=occf)
+    made = launched(before)
     require(len(rays) >= 2 and len(shadows) >= 2,
             f"the Whitted frame made {len(rays)} intersector and "
             f"{len(shadows)} occluder calls, expected a bounce pass")
+    require(made["shadow_keys"] == made["shadow_rays"] == len(shadows),
+            f"the Whitted frame's {len(shadows)} shadow batches launched "
+            f"shadow_keys {made['shadow_keys']} and shadow_rays "
+            f"{made['shadow_rays']} times, expected one each a batch")
     require(shadows[0][0].shape == (r.dscene.lights.n_lights * width * height, 3),
             f"primary shadow batch shape {tuple(shadows[0][0].shape)}")
     held = Held()
@@ -950,7 +975,8 @@ def pass_kernel_ms(fn, n: int) -> list:
         time.sleep(PROFILE_PAUSE_S)
         fn()
         torch.cuda.synchronize()
-    own = ("pt_draws", "bin_lists", "closest_hit", "any_hit")
+    own = ("pt_draws", "bin_lists", "closest_hit", "any_hit", "shadow_keys",
+           "shadow_rays")
     events = sorted((e for e in prof.events()
                      if e.device_type == DeviceType.CUDA
                      and any(k in e.name for k in own)),
@@ -994,6 +1020,65 @@ def draws_record(drawn, launches, card):
     return dict(max_abs_err=0.0, library_ms=None, batches=batches,
                 **{k: batches[0][k] for k in
                    ("ms", "plain_ms", "bound_ms", "bound_by")})
+
+
+def keep(x):
+    """A copy of ``x`` with its strides (the sorted gather's columns stay
+    strided); anything not a tensor as it is."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    return torch.empty_strided(x.size(), x.stride(), dtype=x.dtype,
+                               device=x.device).copy_(x)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (floats compared as their i32 words)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def shadow_records(shadow_in, card):
+    """shadow_keys and shadow_rays against their plain chains on the card,
+    bit for bit, at the operands a PT sample hands them (``shadow_in``: the
+    primary pass's and the first bounce's); each timed beside its bound
+    (the kernel's device time from the profiler) and beside the chain it
+    replaces (CUDA events around the chain's launches).  Returns the two
+    kernels' records."""
+    records = {}
+    for kind, kernel, plain in (
+            ("keys", psh.shadow_keys, psh.shadow_keys_plain),
+            ("rays", psh.shadow_rays, psh.shadow_rays_plain)):
+        name, batches = f"shadow_{kind}", []
+        for bounce, (args, kw) in enumerate(shadow_in[kind]):
+            label = f"100k 1080p PT pass {bounce} shadow batch"
+            got, want = kernel(*args, **kw), plain(*args, **kw)
+            require(len(got) == len(want)
+                    and all(bits_equal(g, w) for g, w in zip(got, want)),
+                    f"{name} differs from its plain chain at the {label}")
+            n = args[0].shape[0]
+            if kind == "keys":
+                rows, nbytes_ = n, n * SHADOW_KEY_BYTES
+            else:
+                rows = args[3].shape[0] * n
+                nbytes_ = n * SHADOW_POINT_BYTES + rows * SHADOW_RAY_BYTES
+            bound_ms, bound_by = bound(nbytes_, 0.0)
+            rec = dict(batch=label, points=n, rows=rows,
+                       ms=device_ms(lambda: kernel(*args, **kw), name),
+                       plain_ms=time_ms(lambda: plain(*args, **kw),
+                                        KERNEL_REPS),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            print(f"{name} at the {label} ({n} points, {rows} rows): equal "
+                  f"to its plain chain bit for bit; kernel {rec['ms']:.4f} ms "
+                  f"(device time, profiler), plain chain on the card "
+                  f"{rec['plain_ms']:.4f} ms (CUDA events), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
+            batches.append(rec)
+        require(len(batches) == 2, f"{name}: {len(batches)} batches held")
+        records[name] = dict(max_abs_err=0.0, library_ms=None, batches=batches,
+                             **{k: batches[0][k] for k in
+                                ("ms", "plain_ms", "bound_ms", "bound_by")})
+    return records
 
 
 def pt_path(r, card):
@@ -1050,6 +1135,18 @@ def pt_path(r, card):
             drawn.append((ids.clone(), key, bounce, layout))
         return draw(ids, key, bounce, layout)
 
+    # The operands each pass hands to the shadow batch's kernels (kept for
+    # the primary pass and the first bounce), strides and all.
+    shadow_in, shadow_fns = {"keys": [], "rays": []}, {
+        "keys": psh.shadow_keys, "rays": psh.shadow_rays}
+
+    def capturing_shadow(kind):
+        def fn(*args, **kw):
+            if len(shadow_in[kind]) < 2:
+                shadow_in[kind].append((tuple(map(keep, args)), kw))
+            return shadow_fns[kind](*args, **kw)
+        return fn
+
     def sample(key, isect=r.intersect_fn, occf=r.occluder_factory):
         return pathtrace_tile(r.dscene, pos, rot, key, width, height,
                               max_depth=PT_DEPTH, intersect_fn=isect,
@@ -1057,22 +1154,31 @@ def pt_path(r, card):
 
     before = trace.launches()
     ppt.pt_draws = capturing_draws
+    psh.shadow_keys = capturing_shadow("keys")
+    psh.shadow_rays = capturing_shadow("rays")
     try:
         sample(1, capturing_isect, capturing_occ)
     finally:
         ppt.pt_draws = draw
-    draw_launches = launched(before)["pt_draws"]
+        psh.shadow_keys, psh.shadow_rays = shadow_fns["keys"], shadow_fns["rays"]
+    made = launched(before)
+    draw_launches = made["pt_draws"]
     require(len(passes) == PT_DEPTH and "shadow" in kept,
             f"the PT sample ran {len(passes)} passes, expected {PT_DEPTH}")
     require(len(drawn) == 2 and draw_launches == PT_DEPTH + 1,
             f"the PT sample drew {draw_launches} times, expected "
             f"{PT_DEPTH + 1} (a pass each and the jitter)")
+    require(made["shadow_keys"] == made["shadow_rays"] == PT_DEPTH,
+            f"the PT sample's {PT_DEPTH} shadow batches launched shadow_keys "
+            f"{made['shadow_keys']} and shadow_rays {made['shadow_rays']} "
+            f"times, expected one each a batch")
     # The sample launches pt_draws for its jitter, then a pass launches
-    # pt_draws, bin_lists, closest_hit, bin_lists, any_hit, in order (the
-    # profiler may still miss a record: one more profiled sample is taken
-    # then).
-    order = ["pt_draws"] + ["pt_draws", "bin_lists", "closest_hit",
-                            "bin_lists", "any_hit"] * PT_DEPTH
+    # pt_draws, bin_lists, closest_hit, shadow_keys, shadow_rays, bin_lists,
+    # any_hit, in order (the profiler may still miss a record: one more
+    # profiled sample is taken then).
+    per_pass = ["pt_draws", "bin_lists", "closest_hit", "shadow_keys",
+                "shadow_rays", "bin_lists", "any_hit"]
+    order = ["pt_draws"] + per_pass * PT_DEPTH
     kernel_ms = pass_kernel_ms(lambda: sample(1), len(order))
     if [k for k, _ in kernel_ms] != order:
         kernel_ms = pass_kernel_ms(lambda: sample(1), len(order))
@@ -1080,16 +1186,18 @@ def pt_path(r, card):
             f"the profiled PT sample's kernels: {[k for k, _ in kernel_ms]}")
     print(f"PT jitter: pt_draws {kernel_ms[0][1]:.4f} ms (device time, "
           f"profiler) [{card}]")
+    k = len(per_pass)
     for i, p in enumerate(passes):
-        ms = [f"{m:.4f}" for _, m in kernel_ms[1 + 5 * i:6 + 5 * i]]
+        ms = [f"{m:.4f}" for _, m in kernel_ms[1 + k * i:1 + k * (i + 1)]]
         print(f"PT pass {i}: pt_draws {ms[0]} ms; {p['alive']} alive rays in "
               f"{p['tiles']} tiles x {p['tile_r']}: {p['listed']} listed "
               f"pairs, longest list {p['longest']}, {p['items']} work items; "
-              f"bin_lists {ms[1]} ms, closest_hit {ms[2]} ms; shadow batch "
+              f"bin_lists {ms[1]} ms, closest_hit {ms[2]} ms; shadow_keys "
+              f"{ms[3]} ms, shadow_rays {ms[4]} ms; shadow batch "
               f"{p['shadow_rays']} rays ({p['shadow_armed']} armed) in "
               f"{p['shadow_tiles']} tiles: {p['shadow_listed']} listed pairs, "
               f"longest list {p['shadow_longest']}, {p['shadow_items']} work "
-              f"items; bin_lists {ms[3]} ms, any_hit {ms[4]} ms "
+              f"items; bin_lists {ms[5]} ms, any_hit {ms[6]} ms "
               f"(device time, profiler) [{card}]")
 
     # The kernels at the first bounce pass's batches, against their plain
@@ -1100,7 +1208,8 @@ def pt_path(r, card):
     held.shadows("100k 1080p PT bounce shadow", kept["shadow"], r, card,
                  plain_reps=1, plain_warmup=0)
     record = draws_record(drawn, draw_launches, card)
-    del kept, drawn
+    shadow = shadow_records(shadow_in, card)
+    del kept, drawn, shadow_in
     torch.cuda.empty_cache()
 
     # The port's own entry point, with a checkpoint.
@@ -1114,8 +1223,14 @@ def pt_path(r, card):
     torch.cuda.synchronize()
     launches = trace.launches()
     print(f"PT path launches ({PT_SAMPLES} samples): {dict(launches)}")
-    for name in ("bin_clusters", "closest_hit", "any_hit", "pt_draws"):
+    for name in ("bin_clusters", "closest_hit", "any_hit", "pt_draws",
+                 "shadow_keys", "shadow_rays"):
         require(launches[name] > 0, f"{name} was not launched on the PT path")
+    require(launches["shadow_keys"] == launches["shadow_rays"]
+            == PT_DEPTH * PT_SAMPLES,
+            f"shadow_keys {launches['shadow_keys']} and shadow_rays "
+            f"{launches['shadow_rays']} launches in {PT_SAMPLES} samples of "
+            f"{PT_DEPTH} shadow batches")
     resumed = PathTracer(r.dscene, width, height, max_depth=PT_DEPTH,
                          intersect_fn=r.intersect_fn,
                          occluder_factory=r.occluder_factory)
@@ -1170,7 +1285,7 @@ def pt_path(r, card):
     print(f"PT sample at {width}x{height}, bench_scene(100_000), depth "
           f"{PT_DEPTH}: {sample_ms:.4f} ms median of {PT_REPS}; alive per "
           f"pass {[p['alive'] for p in passes]} [{card}]")
-    return held, launches, record
+    return held, launches, record, shadow
 
 
 def huge_path(device, card):
@@ -2038,8 +2153,9 @@ def main(argv=()) -> int:
         **{key: held.any[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by")})
     held.into(records)
-    pt_held, pt_launches, records["pt_draws"] = pt_path(r, card)
+    pt_held, pt_launches, records["pt_draws"], shadow = pt_path(r, card)
     pt_held.into(records)
+    records.update(shadow)
     multi_path(r, card).into(records)
     checks_path(r, card)
     oracles_path(r, card)
@@ -2056,10 +2172,11 @@ def main(argv=()) -> int:
 
     # Each kernel's launches are read from the path it serves: the debug
     # path (bin_clusters, closest_hit), the Whitted path (any_hit), the
-    # path-tracing path (pt_draws), the 1M path (bin_clusters_super) and
-    # exec_stats (closest_hit_exec).
+    # path-tracing path (pt_draws, shadow_keys, shadow_rays), the 1M path
+    # (bin_clusters_super) and exec_stats (closest_hit_exec).
     launches["any_hit"] = whitted_launches["any_hit"]
-    launches["pt_draws"] = pt_launches["pt_draws"]
+    for name in ("pt_draws", "shadow_keys", "shadow_rays"):
+        launches[name] = pt_launches[name]
     launches["bin_clusters_super"] = huge_launches["bin_clusters_super"]
     launches["closest_hit_exec"] = records["closest_hit_exec"].pop("launches")
     # The binning kernel's lines carry their first batch's numbers on top.
@@ -2083,6 +2200,10 @@ def main(argv=()) -> int:
                "bin_clusters_super": ("csrc/bin_clusters.cu", f"{tpu}:367"),
                "pt_draws": ("csrc/pt_draws.cu",
                             "directx_raytracer_tpu/render/pathtrace.py:99"),
+               "shadow_keys": ("csrc/shadow_batch.cu",
+                               "directx_raytracer_tpu/ops/shading.py:140"),
+               "shadow_rays": ("csrc/shadow_batch.cu",
+                               "directx_raytracer_tpu/ops/shading.py:244"),
                "precision_micro": ("csrc/precision_micro.cu",
                                    "tools/precision_micro.py:32")}
     kernels = []

@@ -49,8 +49,10 @@ Each launch is counted in ``utils.trace.COUNTS`` under
 ``launch.<kernel>``, each host sync of a query under ``sync.<site>``, and
 the queries' parts are ``dxrt.query.*`` and ``dxrt.occluder.*`` spans
 (``utils/trace.py``).  The same library carries the precision micro's
-kernel (``tools/precision_micro.py`` of this package wraps and counts it)
-and the path tracer's draw kernel (``ops/draws.py`` wraps and counts it).
+kernel (``tools/precision_micro.py`` of this package wraps and counts it),
+the path tracer's draw kernel (``ops/draws.py`` wraps and counts it) and
+the shadow batch's key and ray kernels (``ops/shading.py`` wraps and
+counts them).
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("bin_clusters.cu", "closest_hit.cu", "any_hit.cu",
-           "precision_micro.cu", "pt_draws.cu")
+           "precision_micro.cu", "pt_draws.cu", "shadow_batch.cu")
 HEADERS = ("walk.cuh",)  # included by closest_hit.cu and any_hit.cu
 # -Xptxas -v reports each kernel's registers, shared memory and spills into
 # the build log.  No --use_fast_math: the kernels need IEEE divides and
@@ -173,6 +175,11 @@ def _lib() -> ctypes.CDLL:
     u = ctypes.c_uint32
     lib.dxrt_pt_draws.argtypes = [p, i, u, u, u, u, i, i, i, i, i, p, p]
     lib.dxrt_pt_draws.restype = i
+    lib.dxrt_shadow_keys.argtypes = [p, i, p, i, p, p, p, i, p, p, p]
+    lib.dxrt_shadow_keys.restype = i
+    lib.dxrt_shadow_rays.argtypes = ([p, i, p, i] + [p] * 6
+                                     + [i, i, i, f, f] + [p] * 4)
+    lib.dxrt_shadow_rays.restype = i
     lib.dxrt_error_string.argtypes = [i]
     lib.dxrt_error_string.restype = ctypes.c_char_p
     return lib

@@ -5,7 +5,11 @@ Counterpart of ``directx_raytracer_tpu/ops/shading.py`` (``FOUR_PI``,
 ``SHADOW_BIAS``, ``RAY_BIAS``, ``sample_textures``, ``hit_attributes``,
 ``_morton_key_points``, ``direct_lighting``, ``reflect``,
 ``refract_fresnel``), as plain torch with the same float-op order, on the
-device of the tensors it is given.
+device of the tensors it is given.  The shadow batch's sort keys and rays
+(``shadow_keys``, ``shadow_rays``) are one launch each of
+``csrc/shadow_batch.cu`` on the card, where XLA fuses their chains under
+``jit`` and eager torch would launch every op; their plain versions
+(``shadow_keys_plain``, ``shadow_rays_plain``) run on the CPU.
 
 This is the Whitted feature set the reference *declares* (parsed
 materials/lights/textures, CRTSceneParser.cpp:152-405) but never uploads to
@@ -157,6 +161,149 @@ def _morton_key_points(p, lo, hi, armed):
     return torch.where(armed, key, 2**31 - 1)
 
 
+# ---------------------------------------------------------------------------
+# The shadow batch: its sort keys and its rays
+# ---------------------------------------------------------------------------
+
+
+def shadow_keys_plain(points, normals, mask, lo, hi):
+    """The shadow sort's keys as torch chains: (N,) i32 30-bit Morton key
+    of each point in the box (lo, hi), 2**31 - 1 for a disarmed point, and
+    (N,) f32 armed (1 or 0): ``mask`` (all when None) where the point and
+    its normal are finite."""
+    armed = (mask if mask is not None
+             else torch.ones((points.shape[0],), dtype=torch.bool,
+                             device=points.device))
+    armed = (armed & torch.isfinite(points).all(dim=-1)
+             & torch.isfinite(normals).all(dim=-1))
+    return _morton_key_points(points, lo, hi, armed), armed.to(torch.float32)
+
+
+def shadow_rays_plain(points, normals, mask, lxd, lyd, lzd, dist, cos,
+                      park_masked):
+    """The occluder's light-major batch as torch chains, from the (L, N)
+    unit light directions ``lxd``, ``lyd``, ``lzd``, distances ``dist`` and
+    clamped cosines ``cos`` of the N points: origins (L*N, 3), dirs
+    (L*N, 3) and t_max (L*N,).  ``park_masked``: the batch is Morton-sorted,
+    so masked-out rays are parked too."""
+    n_l, n = lxd.shape
+    px, py, pz = points[:, 0], points[:, 1], points[:, 2]
+    sox = px + normals[:, 0] * SHADOW_BIAS  # (N,) each
+    soy = py + normals[:, 1] * SHADOW_BIAS
+    soz = pz + normals[:, 2] * SHADOW_BIAS
+    # Parked/degenerate wavefront slots carry non-finite points; give them a
+    # strictly-positive far ray so their tiles bin to nothing.  Masked-but-
+    # live rays keep their true geometry — replacing it would blow up the
+    # conservative box of any tile mixing masked and unmasked rays — and
+    # are disarmed via t_max = 0 instead.
+    finite = torch.isfinite(sox) & torch.isfinite(soy) & torch.isfinite(soz)
+    live = finite
+    if park_masked and mask is not None:
+        # Sorted mode: disarmed rays are segregated to the tail, so parking
+        # them cannot blow up an armed tile's box.
+        live = finite & mask
+    sox = torch.where(live, sox, 1e30)
+    soy = torch.where(live, soy, 1e30)
+    soz = torch.where(live, soz, 1e30)
+    ok_l = (live[None, :] & torch.isfinite(lxd) & torch.isfinite(lyd)
+            & torch.isfinite(lzd))
+    # A back-facing lane's diffuse and specular terms are zero whatever the
+    # occlusion, so disarming it (t_max = 0) is exact and costs the kernel
+    # nothing.
+    t_shadow = torch.where(cos > 0.0, dist - 2.0 * SHADOW_BIAS, 0.0)
+    if mask is not None:
+        t_shadow = torch.where((mask & finite)[None, :], t_shadow, 0.0)
+    origins = torch.stack([sox.expand(n_l, n), soy.expand(n_l, n),
+                           soz.expand(n_l, n)], dim=-1)
+    dirs = torch.stack([torch.where(ok_l, lxd, 1.0),
+                        torch.where(ok_l, lyd, 1.0),
+                        torch.where(ok_l, lzd, 1.0)], dim=-1)
+    return origins.reshape(-1, 3), dirs.reshape(-1, 3), t_shadow.reshape(-1)
+
+
+def _check_surface(points, normals, mask) -> None:
+    """The kernels' surface operands: points and normals (n, 3) f32 rows
+    of 3 adjacent floats at a row stride of at least 3 (the sorted
+    gather's packed columns, or contiguous tensors), mask None or (n,)
+    bool."""
+    from ..bvh.cuda_intersect import _check
+
+    n, device = points.shape[0], points.device
+    for name, x in (("points", points), ("normals", normals)):
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name}: dtype {x.dtype}, expected torch.float32")
+        if x.device != device or tuple(x.shape) != (n, 3):
+            raise ValueError(f"{name}: shape {tuple(x.shape)} on {x.device}, "
+                             f"expected {(n, 3)} on {device}")
+        if x.stride(1) != 1 or x.stride(0) < 3:
+            raise ValueError(f"{name}: strides {x.stride()}, expected rows "
+                             f"of 3 adjacent floats")
+    if mask is not None:
+        _check("mask", mask, torch.bool, (n,), device)
+
+
+def shadow_keys(points, normals, mask, lo, hi):
+    """``shadow_keys_plain``'s (key, armed): for CUDA tensors one launch of
+    ``csrc/shadow_batch.cu``'s key kernel, counted as
+    ``launch.shadow_keys``; for CPU tensors the plain chains."""
+    if points.device.type == "cpu":
+        return shadow_keys_plain(points, normals, mask, lo, hi)
+    from ..bvh.cuda_intersect import _check, _launched, _lib
+
+    n, device = points.shape[0], points.device
+    _check_surface(points, normals, mask)
+    _check("lo", lo, torch.float32, (3,), device)
+    _check("hi", hi, torch.float32, (3,), device)
+    key = torch.empty((n,), dtype=torch.int32, device=device)
+    armed = torch.empty((n,), dtype=torch.float32, device=device)
+    if n == 0:
+        return key, armed
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dxrt_shadow_keys(
+            points.data_ptr(), points.stride(0), normals.data_ptr(),
+            normals.stride(0), None if mask is None else mask.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), n, key.data_ptr(), armed.data_ptr(),
+            stream)
+    _launched(lib, "shadow_keys", err)
+    return key, armed
+
+
+def shadow_rays(points, normals, mask, lxd, lyd, lzd, dist, cos,
+                park_masked):
+    """``shadow_rays_plain``'s (origins, dirs, t_max): for CUDA tensors one
+    launch of ``csrc/shadow_batch.cu``'s ray kernel, counted as
+    ``launch.shadow_rays``; for CPU tensors the plain chains."""
+    if points.device.type == "cpu":
+        return shadow_rays_plain(points, normals, mask, lxd, lyd, lzd, dist,
+                                 cos, park_masked)
+    from ..bvh.cuda_intersect import _check, _launched, _lib
+
+    n, n_l, device = points.shape[0], lxd.shape[0], points.device
+    _check_surface(points, normals, mask)
+    for name, x in (("lxd", lxd), ("lyd", lyd), ("lzd", lzd), ("dist", dist),
+                    ("cos", cos)):
+        _check(name, x, torch.float32, (n_l, n), device)
+    origins = torch.empty((n_l * n, 3), dtype=torch.float32, device=device)
+    dirs = torch.empty((n_l * n, 3), dtype=torch.float32, device=device)
+    t_max = torch.empty((n_l * n,), dtype=torch.float32, device=device)
+    if n_l * n == 0:
+        return origins, dirs, t_max
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dxrt_shadow_rays(
+            points.data_ptr(), points.stride(0), normals.data_ptr(),
+            normals.stride(0), None if mask is None else mask.data_ptr(),
+            lxd.data_ptr(), lyd.data_ptr(), lzd.data_ptr(), dist.data_ptr(),
+            cos.data_ptr(), n_l, n, int(park_masked), SHADOW_BIAS,
+            2.0 * SHADOW_BIAS, origins.data_ptr(), dirs.data_ptr(),
+            t_max.data_ptr(), stream)
+    _launched(lib, "shadow_rays", err)
+    return origins, dirs, t_max
+
+
 def direct_lighting(points, normals, lights, occluder_fn, mask=None,
                     view=None, shininess=None, sort_bounds=None):
     """Lambert-weighted point-light sum with shadow rays (+ optional
@@ -186,9 +333,10 @@ def direct_lighting(points, normals, lights, occluder_fn, mask=None,
         clusters), and disarmed rays, sorted last and parked (origin 1e30,
         direction 1), fill tiles that bin nothing.
 
-    The shadow batch's sort, its rays and the occluder call, and the
-    unsort are ``dxrt.occluder`` spans; the lighting between them is the
-    caller's (``dxrt.shade``).
+    The shadow batch's sort (its keys: ``shadow_keys``), its rays
+    (``shadow_rays``) and the occluder call, and the unsort are
+    ``dxrt.occluder`` spans; the lighting between them is the caller's
+    (``dxrt.shade``).
 
     Returns (N, 1) un-albedo'd irradiance factor, or a tuple
     ((N, 1) diffuse, (N, 1) specular) when ``view`` is given.
@@ -205,15 +353,9 @@ def direct_lighting(points, normals, lights, occluder_fn, mask=None,
     unsort = None
     if sort_bounds is not None and occluder_fn is not None:
         with span("dxrt.occluder"):
-            armed = (mask if mask is not None
-                     else torch.ones((n,), dtype=torch.bool,
-                                     device=points.device))
-            armed = (armed & torch.isfinite(points).all(dim=-1)
-                     & torch.isfinite(normals).all(dim=-1))
-            key = _morton_key_points(points, sort_bounds[0], sort_bounds[1],
-                                     armed)
+            key, armed = shadow_keys(points, normals, mask, *sort_bounds)
             perm = torch.sort(key, stable=True).indices
-            cols = [points, normals, armed.to(torch.float32)[:, None]]
+            cols = [points, normals, armed[:, None]]
             if view is not None:
                 cols += [view, shininess[:, None]]
             packed = torch.cat(cols, dim=1)[perm]  # one wide gather
@@ -251,39 +393,11 @@ def direct_lighting(points, normals, lights, occluder_fn, mask=None,
 
     if occluder_fn is not None:
         with span("dxrt.occluder"):
-            sox = px + nxc * SHADOW_BIAS  # (N,) each
-            soy = py + nyc * SHADOW_BIAS
-            soz = pz + nzc * SHADOW_BIAS
-            # Parked/degenerate wavefront slots carry non-finite points; give
-            # them a strictly-positive far ray so their tiles bin to nothing.
-            # Masked-but-live rays keep their true geometry — replacing it
-            # would blow up the conservative box of any tile mixing masked and
-            # unmasked rays — and are disarmed via t_max = 0 instead.
-            finite = (torch.isfinite(sox) & torch.isfinite(soy)
-                      & torch.isfinite(soz))
-            live = finite
-            if unsort is not None and mask is not None:
-                # Sorted mode: disarmed rays are segregated to the tail, so
-                # parking them cannot blow up an armed tile's box.
-                live = finite & mask
-            sox = torch.where(live, sox, 1e30)
-            soy = torch.where(live, soy, 1e30)
-            soz = torch.where(live, soz, 1e30)
-            ok_l = (live[None, :] & torch.isfinite(lxd) & torch.isfinite(lyd)
-                    & torch.isfinite(lzd))
-            # A back-facing lane's diffuse and specular terms are zero whatever
-            # the occlusion, so disarming it (t_max = 0) is exact and costs the
-            # kernel nothing.
-            t_shadow = torch.where(cos > 0.0, dist - 2.0 * SHADOW_BIAS, 0.0)
-            if mask is not None:
-                t_shadow = torch.where((mask & finite)[None, :], t_shadow, 0.0)
-            origins = torch.stack([sox.expand(n_l, n), soy.expand(n_l, n),
-                                   soz.expand(n_l, n)], dim=-1)
-            dirs_occ = torch.stack([torch.where(ok_l, lxd, 1.0),
-                                    torch.where(ok_l, lyd, 1.0),
-                                    torch.where(ok_l, lzd, 1.0)], dim=-1)
-            blocked = occluder_fn(origins.reshape(-1, 3), dirs_occ.reshape(-1, 3),
-                                  t_shadow.reshape(-1)).reshape(n_l, n)
+            origins, dirs_occ, t_shadow = shadow_rays(
+                points, normals, mask, lxd, lyd, lzd, dist, cos,
+                park_masked=unsort is not None)
+            blocked = occluder_fn(origins, dirs_occ,
+                                  t_shadow).reshape(n_l, n)
             contrib = torch.where(blocked, 0.0, contrib)
             if spec is not None:
                 spec = torch.where(blocked, 0.0, spec)

@@ -22,7 +22,10 @@ amplifies that to ~1e-4 relative on the winning t.  A path-traced sample
 through the kernels against the same sample (same sample key) through
 their plain versions: the Whitted frame gate.  The path tracer's draw
 kernel ``pt_draws`` must equal its pure-torch twin bit for bit (integer
-arithmetic and an exact mapping to f32).
+arithmetic and an exact mapping to f32).  The shadow batch's kernels
+``shadow_keys`` and ``shadow_rays`` must equal their plain chains bit for
+bit (each float op an ``__f*_rn`` intrinsic, rounded as the chain's op),
+and so must a Whitted frame and a path-traced sample through them.
 """
 
 import numpy as np
@@ -37,6 +40,7 @@ from directx_raytracer_tpu_torch.models.scene import (
     build_device_scene,
 )
 from directx_raytracer_tpu_torch.ops.rays import generate_rays_tiled, pick_schedule
+from directx_raytracer_tpu_torch.ops import shading as psh
 from directx_raytracer_tpu_torch.ops.intersect import occluded_bruteforce
 from directx_raytracer_tpu_torch.render.debug import render_debug
 from directx_raytracer_tpu_torch.render.pathtrace import pathtrace_sample
@@ -45,6 +49,8 @@ from directx_raytracer_tpu_torch.render.whitted import render_whitted
 from directx_raytracer_tpu_torch.tools import precision_micro as pm
 from directx_raytracer_tpu_torch.utils.image import to_u8
 from directx_raytracer_tpu_torch.utils import trace
+from test_torch_shadow_batch import batch as shadow_inputs
+from test_torch_shadow_batch import bits_equal
 
 pytestmark = pytest.mark.gpu
 
@@ -629,10 +635,12 @@ def test_pathtrace_sample_matches_plain(cuda):
         assert trace.launches()[name] > 0, name
     before = trace.launches()
     want = sample(plain_isect, plain_occ)
-    # The plain query versions launch nothing; the draws are the same
-    # kernel's on both sides (a launch a pass and the jitter's).
+    # The plain query versions launch nothing; the draws and the shadow
+    # batch's keys and rays are the same kernels' on both sides (the draws
+    # a launch a pass and the jitter's, the others one a shadow batch).
     made = trace.launches() - before
-    assert made == {"pt_draws": before["pt_draws"]}
+    assert made == {name: before[name] for name in
+                    ("pt_draws", "shadow_keys", "shadow_rays")}
     assert torch.isfinite(got).all() and (got >= 0).all()
     diff = np.abs(to_u8(got).astype(int) - to_u8(want).astype(int))
     assert ((diff <= 2).all(axis=-1)).mean() >= 0.99
@@ -656,6 +664,136 @@ def test_pt_draws_equal_their_twin(cuda, n):
             want = draws.pt_draws_plain(ids, key, bounce, layout)
             assert torch.equal(got.cpu(), want)
     assert torch.equal(draws.jitter(key, cuda).cpu(), draws.jitter_plain(key, "cpu"))
+
+
+# ---------------------------------------------------------------------------
+# The shadow batch's keys and rays
+# ---------------------------------------------------------------------------
+
+
+def shadow_operands(device, n, n_lights, masked, packed):
+    """A shadow batch on the card (``test_torch_shadow_batch.batch``: points
+    on and around the box [-1, 1]^3, on its faces, not finite; normals not
+    finite; (L, N) light terms with non-finite and negative entries).  With
+    ``packed``, points and normals are the sorted gather's strided columns
+    of (N, 7) rows, as direct_lighting hands them over."""
+    p, nrm, mask, light = shadow_inputs(n, n_lights, seed=n + n_lights)
+    mask = {"mask": mask, "none": None, "all_off": np.zeros_like(mask)}[masked]
+    p, nrm = torch.from_numpy(p).to(device), torch.from_numpy(nrm).to(device)
+    if packed:
+        rows = torch.cat([p, nrm, torch.zeros_like(p[:, :1])], dim=1)
+        p, nrm = rows[:, 0:3], rows[:, 3:6]
+    mask = None if mask is None else torch.from_numpy(mask).to(device)
+    return p, nrm, mask, tuple(torch.from_numpy(x).to(device) for x in light)
+
+
+@pytest.mark.parametrize("masked", ["mask", "none", "all_off"])
+@pytest.mark.parametrize("n", [1920 * 1080, 899_809, 1_001])
+def test_shadow_keys_kernel_equals_plain(cuda, n, masked):
+    """The PT and Whitted primary batch, a PT bounce's and a small one (the
+    last two not whole blocks of 256), bit for bit."""
+    p, nrm, mask, _ = shadow_operands(cuda, n, 4, masked, packed=False)
+    lo = torch.full((3,), -1.0, device=cuda)
+    hi = torch.full((3,), 1.0, device=cuda)
+    before = trace.launches()["shadow_keys"]
+    key, armed = psh.shadow_keys(p, nrm, mask, lo, hi)
+    assert trace.launches()["shadow_keys"] == before + 1
+    want_key, want_armed = psh.shadow_keys_plain(p, nrm, mask, lo, hi)
+    assert torch.equal(key, want_key)
+    assert bits_equal(armed.cpu(), want_armed.cpu().numpy())
+    assert bool((armed > 0).any()) == (masked != "all_off")
+
+
+@pytest.mark.parametrize("n,n_lights,park,masked,packed", [
+    (1920 * 1080, 4, True, "mask", True),  # a primary batch, sorted
+    (899_809, 4, True, "mask", True),  # a PT bounce, sorted
+    (912_345, 1, True, "mask", True),  # one light
+    (1_001, 4, False, "mask", False),  # unsorted
+    (1_001, 4, False, "none", False),
+    (1_001, 4, True, "none", True),
+    (1_001, 4, True, "all_off", True)])
+def test_shadow_rays_kernel_equals_plain(cuda, n, n_lights, park, masked,
+                                         packed):
+    p, nrm, mask, light = shadow_operands(cuda, n, n_lights, masked, packed)
+    before = trace.launches()["shadow_rays"]
+    got = psh.shadow_rays(p, nrm, mask, *light, park)
+    assert trace.launches()["shadow_rays"] == before + 1
+    want = psh.shadow_rays_plain(p, nrm, mask, *light, park)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bits_equal(g.cpu(), w.cpu().numpy())
+    assert bool((got[2] > 0).any()) == (masked != "all_off")
+
+
+@pytest.mark.parametrize("kind", ["whitted", "pathtrace"])
+def test_frames_through_the_shadow_kernels_equal_the_plain_chains(
+        cuda, monkeypatch, kind):
+    """A depth-3 Whitted frame and a depth-4 path-traced sample of
+    bench_scene(3_000): each shadow batch launches each kernel once, and
+    the frame equals the one the plain chains give, bit for bit."""
+    r = Renderer(testscenes.bench_scene(3_000, W, H), W, H, device=cuda)
+    pos, rot = r.camera.snapshot()
+    batches = []
+
+    def occluder_factory(geo):
+        occluded = r.occluder_factory(geo)
+
+        def counted(o, d, t_max):
+            batches.append(o.shape[0])
+            return occluded(o, d, t_max)
+        return counted
+
+    def frame():
+        before = trace.launches()
+        if kind == "whitted":
+            img = render_whitted(r.dscene, pos, rot, W, H, max_depth=3,
+                                 intersect_fn=r.intersect_fn,
+                                 occluder_factory=occluder_factory)[0]
+        else:
+            img = pathtrace_sample(r.dscene, pos, rot, 5, W, H, max_depth=4,
+                                   intersect_fn=r.intersect_fn,
+                                   occluder_factory=occluder_factory)
+        torch.cuda.synchronize()
+        made = trace.launches()
+        made.subtract(before)
+        return img, made["shadow_keys"], made["shadow_rays"]
+
+    got, keys, rays = frame()
+    n = len(batches)
+    assert n >= 2 and keys == rays == n
+    monkeypatch.setattr(psh, "shadow_keys", psh.shadow_keys_plain)
+    monkeypatch.setattr(psh, "shadow_rays", psh.shadow_rays_plain)
+    want, keys, rays = frame()
+    assert keys == rays == 0 and len(batches) == 2 * n
+    assert torch.isfinite(got).all() and (got > 0).any()
+    assert bits_equal(got.cpu(), want.cpu().numpy())
+
+
+def test_shadow_wrappers_reject_bad_operands(cuda):
+    p, nrm, mask, light = shadow_operands(cuda, 300, 4, "mask", packed=True)
+    lo = torch.full((3,), -1.0, device=cuda)
+    hi = torch.full((3,), 1.0, device=cuda)
+    before = trace.launches()
+    column_major = nrm.t().contiguous().t()
+    for args in ((p.double(), nrm, mask, lo, hi),  # dtype
+                 (p[:, :2], nrm, mask, lo, hi),  # shape
+                 (p, column_major, mask, lo, hi),  # layout
+                 (p, nrm, mask.to(torch.uint8), lo, hi),
+                 (p, nrm, mask[:-1], lo, hi),
+                 (p, nrm, mask, lo.cpu(), hi),  # device
+                 (p, nrm, mask, lo, hi[:2])):
+        with pytest.raises(ValueError):
+            psh.shadow_keys(*args)
+    lxd = light[0]
+    strided = torch.empty((lxd.shape[1], lxd.shape[0]), device=cuda).t()
+    for i, bad in ((0, lxd.double()), (0, lxd[:, :-1]), (0, strided),
+                   (3, light[3].cpu()), (4, light[4][:1].contiguous())):
+        args = list(light)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            psh.shadow_rays(p, nrm, mask, *args, True)
+    with pytest.raises(ValueError):
+        psh.shadow_rays(p, column_major, mask, *light, True)
+    assert trace.launches() == before
 
 
 # ---------------------------------------------------------------------------
