@@ -210,6 +210,7 @@ from directx_raytracer_tpu_torch.bvh import (TILE_R, build_bvh, build_lbvh,
 from directx_raytracer_tpu_torch.bvh import cuda_intersect as ci
 from directx_raytracer_tpu_torch.bvh.binning_oracle import bin_clusters
 from directx_raytracer_tpu_torch.io import crtscene
+from directx_raytracer_tpu_torch.kernels import build_kernels
 from directx_raytracer_tpu_torch.models.material import MaterialType
 from directx_raytracer_tpu_torch.models.scene import build_device_scene
 from directx_raytracer_tpu_torch.ops import draws
@@ -424,11 +425,10 @@ def device_ms(fn, name: str, reps: int = KERNEL_REPS) -> float:
     record for the first launches of a window, and for more of them the
     older the process, whatever it did before: of 30 launches back to back
     none is lost in its first 20 s, 2 at 60 s and 3 at 100 s, the same
-    after sleeping as after rendering (measured on an H100 by
-    tools/profiler_probe.py of the package).  A 3-call window late in the
-    run therefore came back empty every time.  Besides, a window now and
-    then loses many or all of its records, at any age and for no cause that
-    probe could find: of 300 windows of 46 launches back to back 5 lost 12
+    after sleeping as after rendering (measured on an H100).  A 3-call
+    window late in the run therefore came back empty every time.  Besides,
+    a window now and then loses many or all of its records, at any age and
+    for no cause found: of 300 windows of 46 launches back to back 5 lost 12
     to 46 records; of 300 windows of this shape, 298 returned every timed
     record, one all but one and one none.  A window with fewer than ``reps``
     records is therefore taken once more, and a second one fails the run.
@@ -1173,10 +1173,10 @@ def pt_path(r, card):
             f"{made['shadow_keys']} and shadow_rays {made['shadow_rays']} "
             f"times, expected one each a batch")
     # The sample launches pt_draws for its jitter, then a pass launches
-    # pt_draws, bin_lists, closest_hit, shadow_keys, shadow_rays, bin_lists,
-    # any_hit, in order (the profiler may still miss a record: one more
-    # profiled sample is taken then).
-    per_pass = ["pt_draws", "bin_lists", "closest_hit", "shadow_keys",
+    # bin_lists, closest_hit, then pt_draws in its shading, shadow_keys,
+    # shadow_rays, bin_lists, any_hit, in order (the profiler may still miss
+    # a record: one more profiled sample is taken then).
+    per_pass = ["bin_lists", "closest_hit", "pt_draws", "shadow_keys",
                 "shadow_rays", "bin_lists", "any_hit"]
     order = ["pt_draws"] + per_pass * PT_DEPTH
     kernel_ms = pass_kernel_ms(lambda: sample(1), len(order))
@@ -1189,10 +1189,10 @@ def pt_path(r, card):
     k = len(per_pass)
     for i, p in enumerate(passes):
         ms = [f"{m:.4f}" for _, m in kernel_ms[1 + k * i:1 + k * (i + 1)]]
-        print(f"PT pass {i}: pt_draws {ms[0]} ms; {p['alive']} alive rays in "
+        print(f"PT pass {i}: pt_draws {ms[2]} ms; {p['alive']} alive rays in "
               f"{p['tiles']} tiles x {p['tile_r']}: {p['listed']} listed "
               f"pairs, longest list {p['longest']}, {p['items']} work items; "
-              f"bin_lists {ms[1]} ms, closest_hit {ms[2]} ms; shadow_keys "
+              f"bin_lists {ms[0]} ms, closest_hit {ms[1]} ms; shadow_keys "
               f"{ms[3]} ms, shadow_rays {ms[4]} ms; shadow batch "
               f"{p['shadow_rays']} rays ({p['shadow_armed']} armed) in "
               f"{p['shadow_tiles']} tiles: {p['shadow_listed']} listed pairs, "
@@ -2119,7 +2119,7 @@ def main(argv=()) -> int:
     device = torch.device("cuda:0")
     torch.cuda.set_device(device)
 
-    so, seconds = ci.build_kernels()
+    so, seconds = build_kernels()
     print(f"built {so.name} in {seconds:.2f} s")
     log = so.with_suffix(".log")
     if log.exists():

@@ -43,32 +43,20 @@ CPU tests run them and the GPU check compares the kernels with them.  A
 wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.
 
-The kernels are compiled with nvcc on first use, from the sources in
-``csrc/``, into ``_build/`` next to this package, and bound with ctypes.
-Each launch is counted in ``utils.trace.COUNTS`` under
-``launch.<kernel>``, each host sync of a query under ``sync.<site>``, and
-the queries' parts are ``dxrt.query.*`` and ``dxrt.occluder.*`` spans
-(``utils/trace.py``).  The same library carries the precision micro's
-kernel (``tools/precision_micro.py`` of this package wraps and counts it),
-the path tracer's draw kernel (``ops/draws.py`` wraps and counts it) and
-the shadow batch's key and ray kernels (``ops/shading.py`` wraps and
-counts them).
+The kernels are built, bound and launched by ``kernels.py`` of this
+package, which counts each launch in ``utils.trace.COUNTS`` under
+``launch.<kernel>``; each host sync of a query is counted under
+``sync.<site>``, and the queries' parts are ``dxrt.query.*`` and
+``dxrt.occluder.*`` spans (``utils/trace.py``).
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from dataclasses import dataclass
-from pathlib import Path
 
 import torch
 
+from ..kernels import check_tensor, launch
 from ..ops.intersect import Hit
 from ..ops.rays import T_MAX, T_MIN
 from ..utils import trace
@@ -84,132 +72,6 @@ PLAIN_CHUNK = 128  # tiles per step of the plain walks (~50 MB temporaries)
 BIG = 1e30
 SUPER_BLOCK = 128  # clusters per superblock of the superblock binner
 SUPER_MIN_C = 2048  # from this cluster count on, binning skips superblocks
-
-
-# ---------------------------------------------------------------------------
-# Build and bind
-# ---------------------------------------------------------------------------
-
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
-SOURCES = ("bin_clusters.cu", "closest_hit.cu", "any_hit.cu",
-           "precision_micro.cu", "pt_draws.cu", "shadow_batch.cu")
-HEADERS = ("walk.cuh",)  # included by closest_hit.cu and any_hit.cu
-# -Xptxas -v reports each kernel's registers, shared memory and spills into
-# the build log.  No --use_fast_math: the kernels need IEEE divides and
-# unflushed denormals.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
-            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def _library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
-        h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"libdxrt_kernels_{h.hexdigest()[:16]}.so"
-
-
-def build_kernels() -> tuple[Path, float]:
-    """Compile csrc/*.cu into one shared library unless the library for
-    these exact sources and flags exists: one nvcc per source, all started
-    together, then one link.  Returns (path, seconds spent building, 0.0 if
-    nothing was built).  The compilers' output goes to the ``.log`` file
-    beside the library."""
-    so = _library_path()
-    if so.exists():
-        return so, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{so.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
-    tmp = BUILD_DIR / f"{tag}.tmp.so"
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
-                               str(CSRC / name)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
-             for name, obj in zip(SOURCES, objs)]
-    log = [f"{name}:\n{proc.communicate()[0]}"
-           for name, proc in zip(SOURCES, procs)]
-    failed = [name for name, proc in zip(SOURCES, procs) if proc.returncode]
-    if not failed:
-        link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
-                               str(tmp), *map(str, objs)],
-                              capture_output=True, text=True)
-        log.append(f"link:\n{link.stdout}{link.stderr}")
-        if link.returncode:
-            failed = ["link"]
-    seconds = time.perf_counter() - t0
-    for obj in objs:
-        obj.unlink(missing_ok=True)
-    so.with_suffix(".log").write_text("\n".join(log))
-    if failed:
-        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
-                           + "\n".join(log))
-    os.replace(tmp, so)
-    return so, seconds
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    so, _ = build_kernels()
-    lib = ctypes.CDLL(str(so))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dxrt_bin_lists.argtypes = [p] * 6 + [i] * 5 + [p]
-    lib.dxrt_bin_lists.restype = i
-    lib.dxrt_closest_hit.argtypes = [p] * 13 + [i, i, i, i, i, f, i, p]
-    lib.dxrt_closest_hit.restype = i
-    lib.dxrt_any_hit.argtypes = [p] * 10 + [i, i, i, i, f, i, p]
-    lib.dxrt_any_hit.restype = i
-    lib.dxrt_precision_fold.argtypes = [p, p, p, i, i, p]
-    lib.dxrt_precision_fold.restype = i
-    u = ctypes.c_uint32
-    lib.dxrt_pt_draws.argtypes = [p, i, u, u, u, u, i, i, i, i, i, p, p]
-    lib.dxrt_pt_draws.restype = i
-    lib.dxrt_shadow_keys.argtypes = [p, i, p, i, p, p, p, i, p, p, p]
-    lib.dxrt_shadow_keys.restype = i
-    lib.dxrt_shadow_rays.argtypes = ([p, i, p, i] + [p] * 6
-                                     + [i, i, i, f, f] + [p] * 4)
-    lib.dxrt_shadow_rays.restype = i
-    lib.dxrt_error_string.argtypes = [i]
-    lib.dxrt_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name}: dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def check_launch(lib: ctypes.CDLL, kernel: str, err: int) -> None:
-    """Raise if a launcher returned a CUDA error."""
-    if err != 0:
-        msg = lib.dxrt_error_string(err).decode()
-        raise RuntimeError(f"{kernel} launch failed: {msg} ({err})")
-
-
-def _launched(lib: ctypes.CDLL, kernel: str, err: int) -> None:
-    """Raise on a launch error, else count the launch: ``launch.<kernel>``
-    ("bin_clusters" the binning kernel's dense mode, "bin_clusters_super"
-    its superblock mode, "closest_hit_exec" closest_hit's counting build);
-    the plain versions never count."""
-    check_launch(lib, kernel, err)
-    trace.count("launch." + kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -386,29 +248,23 @@ def launch_bin_lists(tp: torch.Tensor, cb: torch.Tensor, sb=None,
     ``launch.bin_clusters_super``."""
     dev = tp.device
     tiles, c = tp.shape[0], cb.shape[1]
-    _check("tp", tp, torch.float32, (tiles, 16), dev)
-    _check("cb", cb, torch.float32, (8, c), dev)
+    check_tensor("tp", tp, torch.float32, (tiles, 16), dev)
+    check_tensor("cb", cb, torch.float32, (8, c), dev)
     s = 0
     if sb is not None:
         _check_super(cb, sb, block)
         s = sb.shape[1]
-        _check("sb", sb, torch.float32, (8, s), dev)
+        check_tensor("sb", sb, torch.float32, (8, s), dev)
     visit = torch.empty((tiles, c), dtype=torch.int32, device=dev)
     ventry = torch.empty((tiles, c), dtype=torch.float32, device=dev)
     meta = torch.empty((tiles + 1,), dtype=torch.int32, device=dev)
     if not (tiles and c):
         meta.zero_()
     else:
-        lib = _lib()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.dxrt_bin_lists(
-                tp.data_ptr(), cb.data_ptr(),
-                None if sb is None else sb.data_ptr(), visit.data_ptr(),
-                ventry.data_ptr(), meta.data_ptr(), tiles, c, s, block, c,
-                stream)
-        _launched(lib, "bin_clusters" if sb is None else "bin_clusters_super",
-                  err)
+        launch("bin_clusters" if sb is None else "bin_clusters_super",
+               "dxrt_bin_lists", dev, tp.data_ptr(), cb.data_ptr(),
+               None if sb is None else sb.data_ptr(), visit.data_ptr(),
+               ventry.data_ptr(), meta.data_ptr(), tiles, c, s, block, c)
     return visit, ventry, meta
 
 
@@ -741,16 +597,16 @@ def closest_hit(origins, dirs, init_t, wrows, crows, visit, ventry, counts,
         raise ValueError(f"width {width} outside [0, {stride}]")
     n = tiles * tile_r
     c, k, _ = wrows.shape
-    _check("origins", origins, torch.float32, (n, 3), dev)
-    _check("dirs", dirs, torch.float32, (n, 3), dev)
-    _check("init_t", init_t, torch.float32, (n,), dev)
-    _check("wrows", wrows, torch.float32, (c, k, 12), dev)
-    _check("crows", crows, torch.float32, (c, 8), dev)
+    check_tensor("origins", origins, torch.float32, (n, 3), dev)
+    check_tensor("dirs", dirs, torch.float32, (n, 3), dev)
+    check_tensor("init_t", init_t, torch.float32, (n,), dev)
+    check_tensor("wrows", wrows, torch.float32, (c, k, 12), dev)
+    check_tensor("crows", crows, torch.float32, (c, 8), dev)
     if crows.data_ptr() % 16:
         raise ValueError("crows: not 16-byte aligned")
-    _check("visit", visit, torch.int32, (tiles, stride), dev)
-    _check("ventry", ventry, torch.float32, (tiles, stride), dev)
-    _check("counts", counts, torch.int32, (tiles,), dev)
+    check_tensor("visit", visit, torch.int32, (tiles, stride), dev)
+    check_tensor("ventry", ventry, torch.float32, (tiles, stride), dev)
+    check_tensor("counts", counts, torch.int32, (tiles,), dev)
     keys = pack_keys(init_t)
     executed = tested = None
     if count_exec:
@@ -763,19 +619,14 @@ def closest_hit(origins, dirs, init_t, wrows, crows, visit, ventry, counts,
         order = torch.empty((tiles,), dtype=torch.int32, device=dev)
         offs = torch.empty((depths + 1,), dtype=torch.int32, device=dev)
         sched = torch.zeros((2,), dtype=torch.int32, device=dev)
-        lib = _lib()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.dxrt_closest_hit(
-                origins.data_ptr(), dirs.data_ptr(), wrows.data_ptr(),
-                crows.data_ptr(), visit.data_ptr(), ventry.data_ptr(),
-                counts.data_ptr(), order.data_ptr(), offs.data_ptr(),
-                sched.data_ptr(), keys.data_ptr(),
-                None if executed is None else executed.data_ptr(),
-                None if tested is None else tested.data_ptr(), tiles,
-                depths, tile_r, stride, k, t_min, chunk, stream)
-        _launched(lib, "closest_hit_exec" if count_exec else "closest_hit",
-                  err)
+        launch("closest_hit_exec" if count_exec else "closest_hit",
+               "dxrt_closest_hit", dev, origins.data_ptr(), dirs.data_ptr(),
+               wrows.data_ptr(), crows.data_ptr(), visit.data_ptr(),
+               ventry.data_ptr(), counts.data_ptr(), order.data_ptr(),
+               offs.data_ptr(), sched.data_ptr(), keys.data_ptr(),
+               None if executed is None else executed.data_ptr(),
+               None if tested is None else tested.data_ptr(), tiles, depths,
+               tile_r, stride, k, t_min, chunk)
     if count_exec:
         return (*unpack_keys(keys), executed, tested)
     return unpack_keys(keys)
@@ -862,28 +713,23 @@ def any_hit(origins, dirs, t_max, wrows, visit, ventry, counts,
     tiles, stride = visit.shape
     n = tiles * tile_r
     c, k, _ = wrows.shape
-    _check("origins", origins, torch.float32, (n, 3), dev)
-    _check("dirs", dirs, torch.float32, (n, 3), dev)
-    _check("t_max", t_max, torch.float32, (n,), dev)
-    _check("wrows", wrows, torch.float32, (c, k, 12), dev)
-    _check("visit", visit, torch.int32, (tiles, stride), dev)
-    _check("ventry", ventry, torch.float32, (tiles, stride), dev)
-    _check("counts", counts, torch.int32, (tiles,), dev)
+    check_tensor("origins", origins, torch.float32, (n, 3), dev)
+    check_tensor("dirs", dirs, torch.float32, (n, 3), dev)
+    check_tensor("t_max", t_max, torch.float32, (n,), dev)
+    check_tensor("wrows", wrows, torch.float32, (c, k, 12), dev)
+    check_tensor("visit", visit, torch.int32, (tiles, stride), dev)
+    check_tensor("ventry", ventry, torch.float32, (tiles, stride), dev)
+    check_tensor("counts", counts, torch.int32, (tiles,), dev)
     blocked = torch.zeros((n,), dtype=torch.uint8, device=dev)
     with span("dxrt.occluder.items"):
         work_tile, work_start = anyhit_work_items(counts)
     n_items = work_tile.shape[0]
     if n_items:
-        lib = _lib()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.dxrt_any_hit(
-                origins.data_ptr(), dirs.data_ptr(), t_max.data_ptr(),
-                wrows.data_ptr(), visit.data_ptr(), ventry.data_ptr(),
-                counts.data_ptr(), work_tile.data_ptr(), work_start.data_ptr(),
-                blocked.data_ptr(), n_items, tile_r, stride, k, t_min,
-                ANYHIT_CHUNK, stream)
-        _launched(lib, "any_hit", err)
+        launch("any_hit", "dxrt_any_hit", dev, origins.data_ptr(),
+               dirs.data_ptr(), t_max.data_ptr(), wrows.data_ptr(),
+               visit.data_ptr(), ventry.data_ptr(), counts.data_ptr(),
+               work_tile.data_ptr(), work_start.data_ptr(), blocked.data_ptr(),
+               n_items, tile_r, stride, k, t_min, ANYHIT_CHUNK)
     return blocked.view(torch.bool)
 
 

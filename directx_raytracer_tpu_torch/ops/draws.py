@@ -37,6 +37,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import check_tensor, launch
+
 M0, M1 = 0xD2511F53, 0xCD9E8D57
 W0, W1 = 0x9E3779B9, 0xBB67AE85
 ROUNDS = 10
@@ -144,21 +146,15 @@ def jitter_plain(key: int, device) -> torch.Tensor:
 
 def _launch(ids, n: int, key: int, bounce: int, domain: int,
             layout: Layout, device) -> torch.Tensor:
-    from ..bvh.cuda_intersect import _check, _launched, _lib
-
     out = torch.empty((4, n), dtype=torch.float32, device=device)
     if ids is not None:
-        _check("ids", ids, torch.int32, (n,), device)
+        check_tensor("ids", ids, torch.int32, (n,), device)
     lo, hi = _key_words(key)
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dxrt_pt_draws(
-            None if ids is None else ids.data_ptr(), n, lo, hi,
-            int(bounce) & MASK32, domain, layout.tile_h, layout.tile_w,
-            layout.width // layout.tile_w, layout.width, layout.row_start,
-            out.data_ptr(), stream)
-    _launched(lib, "pt_draws", err)
+    launch("pt_draws", "dxrt_pt_draws", device,
+           None if ids is None else ids.data_ptr(), n, lo, hi,
+           int(bounce) & MASK32, domain, layout.tile_h, layout.tile_w,
+           layout.width // layout.tile_w, layout.width, layout.row_start,
+           out.data_ptr())
     return out
 
 

@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels import check_tensor, launch
 from ..models.material import MaterialType
 from ..models.scene import DeviceScene, TextureTable
 from ..models.texture import TextureType
@@ -226,8 +227,6 @@ def _check_surface(points, normals, mask) -> None:
     of 3 adjacent floats at a row stride of at least 3 (the sorted
     gather's packed columns, or contiguous tensors), mask None or (n,)
     bool."""
-    from ..bvh.cuda_intersect import _check
-
     n, device = points.shape[0], points.device
     for name, x in (("points", points), ("normals", normals)):
         if x.dtype != torch.float32:
@@ -239,7 +238,7 @@ def _check_surface(points, normals, mask) -> None:
             raise ValueError(f"{name}: strides {x.stride()}, expected rows "
                              f"of 3 adjacent floats")
     if mask is not None:
-        _check("mask", mask, torch.bool, (n,), device)
+        check_tensor("mask", mask, torch.bool, (n,), device)
 
 
 def shadow_keys(points, normals, mask, lo, hi):
@@ -248,25 +247,18 @@ def shadow_keys(points, normals, mask, lo, hi):
     ``launch.shadow_keys``; for CPU tensors the plain chains."""
     if points.device.type == "cpu":
         return shadow_keys_plain(points, normals, mask, lo, hi)
-    from ..bvh.cuda_intersect import _check, _launched, _lib
-
     n, device = points.shape[0], points.device
     _check_surface(points, normals, mask)
-    _check("lo", lo, torch.float32, (3,), device)
-    _check("hi", hi, torch.float32, (3,), device)
+    check_tensor("lo", lo, torch.float32, (3,), device)
+    check_tensor("hi", hi, torch.float32, (3,), device)
     key = torch.empty((n,), dtype=torch.int32, device=device)
     armed = torch.empty((n,), dtype=torch.float32, device=device)
     if n == 0:
         return key, armed
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dxrt_shadow_keys(
-            points.data_ptr(), points.stride(0), normals.data_ptr(),
-            normals.stride(0), None if mask is None else mask.data_ptr(),
-            lo.data_ptr(), hi.data_ptr(), n, key.data_ptr(), armed.data_ptr(),
-            stream)
-    _launched(lib, "shadow_keys", err)
+    launch("shadow_keys", "dxrt_shadow_keys", device, points.data_ptr(),
+           points.stride(0), normals.data_ptr(), normals.stride(0),
+           None if mask is None else mask.data_ptr(), lo.data_ptr(),
+           hi.data_ptr(), n, key.data_ptr(), armed.data_ptr())
     return key, armed
 
 
@@ -278,29 +270,22 @@ def shadow_rays(points, normals, mask, lxd, lyd, lzd, dist, cos,
     if points.device.type == "cpu":
         return shadow_rays_plain(points, normals, mask, lxd, lyd, lzd, dist,
                                  cos, park_masked)
-    from ..bvh.cuda_intersect import _check, _launched, _lib
-
     n, n_l, device = points.shape[0], lxd.shape[0], points.device
     _check_surface(points, normals, mask)
     for name, x in (("lxd", lxd), ("lyd", lyd), ("lzd", lzd), ("dist", dist),
                     ("cos", cos)):
-        _check(name, x, torch.float32, (n_l, n), device)
+        check_tensor(name, x, torch.float32, (n_l, n), device)
     origins = torch.empty((n_l * n, 3), dtype=torch.float32, device=device)
     dirs = torch.empty((n_l * n, 3), dtype=torch.float32, device=device)
     t_max = torch.empty((n_l * n,), dtype=torch.float32, device=device)
     if n_l * n == 0:
         return origins, dirs, t_max
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dxrt_shadow_rays(
-            points.data_ptr(), points.stride(0), normals.data_ptr(),
-            normals.stride(0), None if mask is None else mask.data_ptr(),
-            lxd.data_ptr(), lyd.data_ptr(), lzd.data_ptr(), dist.data_ptr(),
-            cos.data_ptr(), n_l, n, int(park_masked), SHADOW_BIAS,
-            2.0 * SHADOW_BIAS, origins.data_ptr(), dirs.data_ptr(),
-            t_max.data_ptr(), stream)
-    _launched(lib, "shadow_rays", err)
+    launch("shadow_rays", "dxrt_shadow_rays", device, points.data_ptr(),
+           points.stride(0), normals.data_ptr(), normals.stride(0),
+           None if mask is None else mask.data_ptr(), lxd.data_ptr(),
+           lyd.data_ptr(), lzd.data_ptr(), dist.data_ptr(), cos.data_ptr(),
+           n_l, n, int(park_masked), SHADOW_BIAS, 2.0 * SHADOW_BIAS,
+           origins.data_ptr(), dirs.data_ptr(), t_max.data_ptr())
     return origins, dirs, t_max
 
 

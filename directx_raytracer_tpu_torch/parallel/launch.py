@@ -64,7 +64,7 @@ def launch(fn, world_size: int, args=(), timeout: float = 600.0,
     traceback; when the processes are not done after ``timeout`` seconds
     they are killed and ``TimeoutError`` is raised, so a hung rendezvous
     cannot hang the caller.  On a CUDA host, build the kernel library once
-    before calling (``cuda_intersect.build_kernels``), or every child
+    before calling (``kernels.build_kernels``), or every child
     builds it.
     """
     address = f"tcp://localhost:{_free_port()}"

@@ -2,13 +2,13 @@
 
 Counterpart of ``directx_raytracer_tpu/render/pathtrace.py``
 (``MIN_THROUGHPUT``, ``RR_START``, ``_onb``, ``_cosine_sample``,
-``_pt_shade_chunk``, ``_pt_pass``, ``_pt_pass_bounce``, ``pathtrace_tile``,
-``pathtrace_sample``, ``PathTracer``), as plain functions on the scene
-tensors' device.
+``_pt_shade_chunk``'s shading, ``pathtrace_tile``, ``pathtrace_sample``,
+``PathTracer``), as plain functions on the scene tensors' device; its queue
+and passes are ``render/wavefront.py``'s.
 
-Monte Carlo extension of the Whitted wavefront (render/whitted.py): the same
-fixed-capacity compacted ray queue, but stochastic transport instead of
-deterministic splitting:
+Monte Carlo extension of the Whitted wavefront: the same passes over the
+same fixed-capacity compacted ray queue, but stochastic transport instead
+of deterministic splitting:
 
 * DIFFUSE: next-event estimation against ALL point lights through the
   Morton-sorted shadow batch of ``ops.shading.direct_lighting`` (the same
@@ -26,8 +26,7 @@ deterministic splitting:
 
 Where the JAX package walks fixed-size chunks under ``while_loop`` and stages
 contributions in a slot queue (static shapes), a bounce pass here shades the
-live prefix of its queue in one go and commits with one ``index_add_``, as
-the Whitted bounce does.
+live prefix of its queue in one go and commits with one ``index_add_``.
 
 Random numbers: keyed draws (``ops/draws.py``).  Every uniform a pass
 consumes is a pure function of (sample key, the pixel's raster index
@@ -39,10 +38,11 @@ do not depend on where the Morton sort put it in the queue, on the pixel
 tiling or on the row band a process renders, and a plain reference can
 follow one path a pixel, drawing the same numbers.  A pass's draws are one
 launch of ``csrc/pt_draws.cu`` on the card (its pure-torch twin on the
-CPU), inside a ``dxrt.shade.draw`` span.  ``_pt_shade_chunk`` takes the
-four (N,) streams as an argument, so a test can hand both packages the
-same numbers; the JAX package draws with ``jax.random`` over its queue, so
-the two packages' samples agree only in distribution.
+CPU), a ``dxrt.shade.draw`` span inside the pass's shading step
+(``_pt_shade``).  ``_pt_shade_hits`` takes the four (N,) streams as an
+argument, so a test can hand both packages the same numbers; the JAX
+package draws with ``jax.random`` over its queue, so the two packages'
+samples agree only in distribution.
 
 ``PathTracer(seed)``: sample k after construction or ``reset()`` has the
 key ``sample_key(seed, k)``, an integer function (no generator).  The
@@ -50,15 +50,17 @@ checkpoint (``save_state``/``load_state``, ``.npz``) holds the accumulated
 radiance, the sample count and the seed, so a checkpoint written on one
 device loads on another, and resuming equals never having stopped.
 
-Each pass counts the rows entering its closest-hit query under
+Each pass's shading step counts the rows that entered the pass under
 ``pt.rays`` (utils/trace.py): the pixel count, then the live count the
 compaction has already read, so the counter adds no host sync.
 
-A sample is a ``dxrt.frame.pathtrace`` span and each bounce a ``dxrt.pass``,
-with the Whitted passes' spans inside (utils/trace.py).
+A sample is a ``dxrt.frame.pathtrace`` span and each bounce a ``dxrt.pass``
+(utils/trace.py).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -66,14 +68,13 @@ import torch
 from ..models.material import MaterialType
 from ..models.scene import DeviceScene
 from ..ops.draws import Layout, jitter, pt_draws, sample_key
-from ..ops.intersect import hit_record
-from ..ops.rays import generate_rays, generate_rays_tiled, pick_schedule
+from ..ops.rays import pick_schedule
 from ..ops.shading import RAY_BIAS, direct_lighting, hit_attributes, reflect, refract_fresnel
-from ..utils import checks, trace
+from ..utils import trace
 from ..utils.trace import span
-from .debug import isect_kwargs, untile
-from .whitted import (PIXEL_SENTINEL, _compact_sort, _default_intersect,
-                      _default_occluder, queue_capacity)
+from .debug import untile
+from .wavefront import (_default_intersect, _default_occluder, new_framebuffer,
+                        primary_wavefront, queue_capacity, run_passes)
 
 MIN_THROUGHPUT = 5e-3
 RR_START = 3  # first bounce applying Russian roulette
@@ -109,33 +110,27 @@ def _draw(key: int, layout: Layout, ids, depth: int) -> torch.Tensor:
         return pt_draws(ids, key, depth, layout)
 
 
-def _pt_shade_chunk(dscene, state, uniforms, depth, intersect_fn, occluder_fn,
-                    tile_r=None, n_pix: int | None = None):
-    """Intersect + shade one wavefront stochastically; returns (contrib,
-    candidates): the (N, 3) terminal contribution of each row (zero for
-    inactive rows) and the N candidate continuations, one per row.
+def _pt_shade(dscene, occluder_fn, key: int, layout: Layout, state, hit,
+              rec, depth: int, last: bool):
+    """The path tracer's shading step of a pass (``render/wavefront.py``):
+    counts the rows that entered the pass under ``pt.rays``, draws their
+    streams keyed by ``key`` and their pixels (``layout``), and shades them
+    (``_pt_shade_hits``).  The continuations of the last pass are made and
+    never consumed."""
+    trace.count("pt.rays", state["pixel"].shape[0])
+    uniforms = _draw(key, layout, state["pixel"], depth)
+    return _pt_shade_hits(dscene, occluder_fn, state, hit, rec, uniforms,
+                          depth)
+
+
+def _pt_shade_hits(dscene, occluder_fn, state, hit, rec, uniforms, depth):
+    """Shade the hits ``hit`` (with their records ``rec``) stochastically:
+    the (N, 3) terminal contribution of each row (zero for inactive rows)
+    and its one candidate continuation, as a one-branch tuple.
 
     ``uniforms``: the four (N,) streams of ``_draw``.  Lanes are selected,
     never multiplied by a mask: a miss lane's attributes are arbitrary and
-    may be non-finite.  ``n_pix``: the accumulator's pixel rows, for the
-    debug build's range guard on live pixel ids (the primary pass gives it;
-    a bounce pass guards its commit instead)."""
-    geo = dscene.geometry
-    with span("dxrt.query"):
-        hit = intersect_fn(state["origins"], state["dirs"], geo,
-                           **isect_kwargs(intersect_fn, tile_r))
-    with span("dxrt.hit_record"):
-        hit, _, _, _, rec = hit_record(state["origins"], state["dirs"],
-                                       geo.packed, hit)
-    with span("dxrt.shade"):
-        return _pt_shade_hits(dscene, state, uniforms, depth, hit, rec,
-                              occluder_fn, n_pix)
-
-
-def _pt_shade_hits(dscene, state, uniforms, depth, hit, rec, occluder_fn,
-                   n_pix: int | None):
-    """``_pt_shade_chunk``'s shading of the hits ``hit`` (with their
-    records ``rec``): the same (contrib, candidates)."""
+    may be non-finite."""
     geo = dscene.geometry
     active = state["active"]
     hit_mask = active & hit.mask
@@ -163,14 +158,6 @@ def _pt_shade_hits(dscene, state, uniforms, depth, hit, rec, occluder_fn,
                                     thpt * attrs["albedo"] * direct, 0.0)
     contrib = contrib + torch.where(is_constant[:, None],
                                     thpt * attrs["albedo"], 0.0)
-    # DXRT_CHECK=1 debug build (see utils.checks): guard what reaches the
-    # accumulator; masked lanes are already zeroed so this flags real bugs.
-    checks.check(lambda: torch.isfinite(contrib).all(),
-                 "non-finite radiance contribution in PT bounce")
-    if n_pix is not None:
-        checks.check(
-            lambda: (~active | ((pixel >= 0) & (pixel < n_pix))).all(),
-            "PT wavefront pixel id out of framebuffer range")
 
     # Continuations (single stochastic branch per ray).
     n = attrs["normal"]
@@ -211,63 +198,7 @@ def _pt_shade_hits(dscene, state, uniforms, depth, hit, rec, occluder_fn,
         "pixel": pixel,
         "active": cont,
     }
-    return contrib, cand
-
-
-def _pt_pass(dscene, state, framebuffer, uniforms, depth, intersect_fn,
-             occluder_fn, capacity, tile_r=None, last: bool = False):
-    """The primary pass (rays in framebuffer order, so a plain add), then
-    the continuations compacted into a queue of ``capacity`` rows (see
-    whitted._compact_sort).  Returns (queue or None, n_alive)."""
-    geo = dscene.geometry
-    contrib, cand = _pt_shade_chunk(dscene, state, uniforms, depth,
-                                    intersect_fn, occluder_fn, tile_r=tile_r,
-                                    n_pix=framebuffer.shape[0] - 1)
-    with span("dxrt.commit"):
-        framebuffer[:contrib.shape[0]] += contrib
-    if last:  # the continuations are never consumed: skip the compaction
-        return None, 0
-    with span("dxrt.compact"):
-        queue, n_alive, _ = _compact_sort(cand, capacity, geo.scene_lo,
-                                          geo.scene_hi)
-    return queue, n_alive
-
-
-def _pt_pass_bounce(dscene, state, framebuffer, key: int, layout: Layout,
-                    depth, intersect_fn, occluder_fn, n_alive: int,
-                    last: bool = False):
-    """A bounce pass over the live prefix ``state[:n_alive]`` of the
-    previous compaction's queue: shade, scatter-add the contributions by
-    pixel id (ids outside the frame go to the framebuffer's sink row, its
-    last), and compact the continuations into a queue of the same capacity.
-    Per-bounce cost follows the surviving wavefront, not the queue.  Its
-    draws are keyed by ``key`` and the live rows' pixels (``layout``).
-    Returns (queue or None, n_alive)."""
-    if n_alive == 0:  # an all-parked queue stays one
-        return (None if last else state), 0
-    geo = dscene.geometry
-    sub = {k: v[:n_alive] for k, v in state.items()}
-    trace.count("pt.rays", n_alive)
-    uniforms = _draw(key, layout, sub["pixel"], depth)
-    contrib, cand = _pt_shade_chunk(dscene, sub, uniforms, depth,
-                                    intersect_fn, occluder_fn)
-    with span("dxrt.commit"):
-        sink = framebuffer.shape[0] - 1
-        ids = sub["pixel"]
-        # Debug build: the queue invariant, on the ids as the queue holds
-        # them (before they are redirected to the sink): a live slot's id
-        # is in range, a parked slot's is exactly the sentinel.
-        checks.check(
-            lambda: ((ids >= 0) & ((ids < sink) | (ids == PIXEL_SENTINEL))).all(),
-            "PT bounce commit pixel id outside framebuffer/sentinel range")
-        ids = torch.where((ids >= 0) & (ids < sink), ids, sink)
-        framebuffer.index_add_(0, ids.long(), contrib)
-    if last:
-        return None, 0
-    with span("dxrt.compact"):
-        queue, n_alive2, _ = _compact_sort(cand, state["origins"].shape[0],
-                                           geo.scene_lo, geo.scene_hi)
-    return queue, n_alive2
+    return contrib, (cand,)
 
 
 def pathtrace_tile(dscene: DeviceScene, cam_position, cam_rotation,
@@ -287,53 +218,19 @@ def pathtrace_tile(dscene: DeviceScene, cam_position, cam_rotation,
     occluder = (occluder_factory or _default_occluder)(geo)
     rows = height if rows is None else rows
     n_pix = width * rows
-    # The queue carries pixel ids as f32 values below the sentinel.
-    if n_pix >= PIXEL_SENTINEL:
-        raise ValueError(f"{n_pix} pixels: ids must stay below {PIXEL_SENTINEL}")
+    framebuffer = new_framebuffer(n_pix, dev)
     tile, tile_r = pick_schedule(rows, width)
-    layout = Layout.of(tile, width, row_start)
-
     with span("dxrt.raygen"):
-        if off is None:
-            off = jitter(key, dev)
-        if tile is None:
-            origins, dirs = generate_rays(cam_position, cam_rotation, width,
-                                          height, off, row_start, rows,
-                                          device=dev)
-        else:
-            origins, dirs = generate_rays_tiled(
-                cam_position, cam_rotation, width, height, tile[0], tile[1],
-                off, row_start, rows, device=dev)
-
-        state = {
-            "origins": origins,
-            "dirs": dirs,
-            "throughput": torch.ones((n_pix, 3), dtype=torch.float32,
-                                     device=dev),
-            "pixel": torch.arange(n_pix, dtype=torch.int32, device=dev),
-            "active": torch.ones((n_pix,), dtype=torch.bool, device=dev),
-        }
-    # n_pix rows + one sink row for ids the scatter must drop.
-    framebuffer = torch.zeros((n_pix + 1, 3), dtype=torch.float32, device=dev)
+        state = primary_wavefront(
+            cam_position, cam_rotation, width, height,
+            jitter(key, dev) if off is None else off, row_start, rows, tile,
+            torch.ones((n_pix, 3), dtype=torch.float32, device=dev))
     # PT rays never split, so a queue of n_pix rows (in whole chunks, the
     # JAX package's sizing) cannot overflow.
-    capacity = queue_capacity(n_pix, 1)
-    alive = n_pix
-    for depth in range(max_depth):
-        last = depth == max_depth - 1
-        with span("dxrt.pass"):
-            if depth == 0:
-                trace.count("pt.rays", n_pix)
-                state, alive = _pt_pass(
-                    dscene, state, framebuffer,
-                    _draw(key, layout, state["pixel"], depth), depth, isect,
-                    occluder, capacity, tile_r=tile_r, last=last)
-            else:
-                state, alive = _pt_pass_bounce(
-                    dscene, state, framebuffer, key, layout, depth, isect,
-                    occluder, alive, last=last)
-        if state is None:
-            break
+    shade = functools.partial(_pt_shade, dscene, occluder, key,
+                              Layout.of(tile, width, row_start))
+    run_passes(dscene, state, framebuffer, shade, isect, tile_r, max_depth,
+               queue_capacity(n_pix, 1))
     return framebuffer[:n_pix]
 
 

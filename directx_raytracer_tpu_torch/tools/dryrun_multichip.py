@@ -67,7 +67,7 @@ def dryrun_multichip(n_devices: int, device=None, timeout: float = 600.0) -> lis
 
     on_card = device is None or torch.device(device).type == "cuda"
     if on_card and torch.cuda.is_available():
-        from ..bvh.cuda_intersect import build_kernels
+        from ..kernels import build_kernels
 
         build_kernels()  # once, before the children race to
     return launch(_dryrun_rank, n_devices, (device,), timeout=timeout,

@@ -46,8 +46,7 @@ import time
 import numpy as np
 import torch
 
-from ..bvh import cuda_intersect as ci
-from ..utils import trace
+from ..kernels import check_tensor, launch
 
 K = 128
 R = 256
@@ -148,20 +147,13 @@ def precision_fold(variant: str, w: torch.Tensor,
     _check_variant(variant)
     dev = w.device
     steps = w.shape[0]
-    ci._check("w", w, torch.float32, (steps, 8, 6 * K), dev)
-    ci._check("rays", rays, torch.float32, (1, 8, R), dev)
+    check_tensor("w", w, torch.float32, (steps, 8, 6 * K), dev)
+    check_tensor("rays", rays, torch.float32, (1, 8, R), dev)
     out = torch.full((1, 1, R), SENTINEL, dtype=torch.int32, device=dev)
     if steps:
-        lib = ci._lib()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.dxrt_precision_fold(w.data_ptr(), rays.data_ptr(),
-                                          out.data_ptr(), steps,
-                                          VARIANTS.index(variant), stream)
-        ci.check_launch(lib, "precision_micro", err)
-        # Counted as launch.precision_micro.<variant>; the plain version
-        # never counts.
-        trace.count(f"launch.precision_micro.{variant}")
+        launch(f"precision_micro.{variant}", "dxrt_precision_fold", dev,
+               w.data_ptr(), rays.data_ptr(), out.data_ptr(), steps,
+               VARIANTS.index(variant))
     return out
 
 

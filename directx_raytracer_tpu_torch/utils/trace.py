@@ -20,8 +20,8 @@ Span names are ``dxrt.<layer>[.<part>]``, nested on the one host thread:
       dxrt.raygen                            primary rays, camera upload
       dxrt.query (.stage, .bin, .walk)       the closest-hit query
       dxrt.hit_record                        the per-hit record fetch
-      dxrt.shade.draw                        a PT pass's keyed draws
       dxrt.shade                             attributes, lighting, shading
+        dxrt.shade.draw                      a PT pass's keyed draws
         dxrt.occluder (.stage, .bin, .walk   the shadow batch's sort, the
                        > .items)             occluder query, the unsort
       dxrt.compact                           the wavefront compaction
@@ -32,7 +32,7 @@ Span names are ``dxrt.<layer>[.<part>]``, nested on the one host thread:
 ``dxrt.occluder.items`` (the any-hit work items and their read) runs
 inside ``dxrt.occluder.walk`` and only on the kernel path.
 ``dxrt.shade.draw`` (one launch of ``pt_draws``, or its twin) runs only in
-a path-traced pass, before the pass's query, and counts in the shading
+a path-traced pass, first in its shading, and counts in the shading
 layer.  The debug frame has no ``dxrt.pass``.
 
 Counters.  ``COUNTS`` holds plain integers, always on: ``count(key, n)``
@@ -52,8 +52,8 @@ adds, ``reset()`` clears; a key never counted reads 0.
   items' read, which only the kernel path makes.  The plain versions' own
   reads (``closest_hit_plain``, ``any_hit_plain``, the clustered walker)
   do not count: on the card they run only as references.
-* ``pt.rays``: the rows entering each path-traced pass's closest-hit
-  query, the frame's pixels and then each bounce's live count, which the
+* ``pt.rays``: the rows entering each path-traced pass (its query and
+  its shading), the frame's pixels and then each bounce's live count, which the
   compaction has already read (no sync of its own).  Over frames x W x H
   it is a sample's rays a pixel (1 primary only, ``max_depth`` at most).
 """

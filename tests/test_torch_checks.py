@@ -8,6 +8,7 @@ only read); against the JAX checked frame the Whitted parity gate of
 tests/test_torch_whitted.py (2 u8 levels on >= 99% of pixels)."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from directx_raytracer_tpu_torch.render import (
     render_whitted_checked,
 )
 from directx_raytracer_tpu_torch.render import pathtrace as ppt
+from directx_raytracer_tpu_torch.render import wavefront as wf
 from directx_raytracer_tpu_torch.render import whitted as pw
 from directx_raytracer_tpu_torch.render.pathtrace import PathTracer
 from directx_raytracer_tpu_torch.render.renderer import Renderer
@@ -168,7 +170,7 @@ def test_pathtracer_checked_step(small_scene, armed):
     assert torch.isfinite(pt.image()).all()
     bad = PathTracer(nan_light(d), 48, 32, max_depth=2)
     with pytest.raises(checks.CheckError,
-                       match="non-finite radiance contribution in PT bounce"):
+                       match="non-finite framebuffer contribution in shade pass"):
         bad.step(pos, rot, n=1)
 
 
@@ -183,10 +185,10 @@ def mirror_queue(n_alive=5, capacity=8):
     scene = pts.bench_scene(3_000, 96, 48)
     d = build_device_scene(scene, "cpu")
     queue = {
-        "origins": torch.tensor(pw._PARK[0:3]).repeat(capacity, 1),
-        "dirs": torch.tensor(pw._PARK[3:6]).repeat(capacity, 1),
+        "origins": torch.tensor(wf._PARK[0:3]).repeat(capacity, 1),
+        "dirs": torch.tensor(wf._PARK[3:6]).repeat(capacity, 1),
         "throughput": torch.zeros((capacity, 3)),
-        "pixel": torch.full((capacity,), pw.PIXEL_SENTINEL, dtype=torch.int32),
+        "pixel": torch.full((capacity,), wf.PIXEL_SENTINEL, dtype=torch.int32),
         "active": torch.arange(capacity) < n_alive,
     }
     queue["origins"][:n_alive] = torch.tensor([0.0, 5.0, 0.0])
@@ -196,8 +198,17 @@ def mirror_queue(n_alive=5, capacity=8):
     return d, queue
 
 
+def whitted_shade(d):
+    return functools.partial(pw._shade_hits, d, wf._default_occluder(d.geometry))
+
+
+def pt_shade(d, layout):
+    return functools.partial(ppt._pt_shade, d, wf._default_occluder(d.geometry),
+                             0, layout)
+
+
 @pytest.mark.parametrize("bad_id,raises", [
-    (None, False), (100, True), (-1, True), (pw.PIXEL_SENTINEL, False)])
+    (None, False), (100, True), (-1, True), (wf.PIXEL_SENTINEL, False)])
 def test_bounce_commit_guards_the_queue_ids(armed, bad_id, raises):
     """Live ids in range or exactly the sentinel pass; an id past the
     framebuffer (which the commit would send to the sink row unseen) or a
@@ -207,11 +218,10 @@ def test_bounce_commit_guards_the_queue_ids(armed, bad_id, raises):
     if bad_id is not None:
         queue["pixel"][2] = bad_id
     fb = torch.zeros((64 + 1, 3))
-    occ = pw._default_occluder(d.geometry)
 
     def commit():
-        return pw._shade_pass_bounce(d, queue, fb, 5, pw._default_intersect,
-                                     occ, last=True)
+        return wf._pass(d, queue, fb, whitted_shade(d), wf._default_intersect,
+                        1, True, 8, n_alive=5)
 
     if raises:
         with pytest.raises(checks.CheckError, match="bounce commit pixel id "
@@ -224,33 +234,30 @@ def test_bounce_commit_guards_the_queue_ids(armed, bad_id, raises):
 
 def test_primary_pass_guards_live_pixel_ids(armed):
     d, queue = mirror_queue(n_alive=8)
-    occ = pw._default_occluder(d.geometry)
     fb = torch.zeros((8 + 1, 3))
-    pw._shade_pass(d, queue, fb, pw._default_intersect, occ, True, 8)
+    wf._pass(d, queue, fb, whitted_shade(d), wf._default_intersect, 0, True, 8)
     queue["pixel"][3] = 8  # one past the framebuffer's pixel rows
     with pytest.raises(checks.CheckError,
                        match="wavefront pixel id out of framebuffer range"):
-        pw._shade_pass(d, queue, torch.zeros((8 + 1, 3)),
-                       pw._default_intersect, occ, True, 8)
+        wf._pass(d, queue, torch.zeros((8 + 1, 3)), whitted_shade(d),
+                 wf._default_intersect, 0, True, 8)
 
 
 def test_pt_passes_guard_pixel_ids(armed):
     d, queue = mirror_queue(n_alive=8)
-    occ = pw._default_occluder(d.geometry)
-    layout = Layout(1, 8, 8)
-    uniforms = ppt._draw(0, layout, queue["pixel"], 0)
-    ppt._pt_pass(d, queue, torch.zeros((9, 3)), uniforms, 0,
-                 pw._default_intersect, occ, 8, last=True)
+    shade = pt_shade(d, Layout(1, 8, 8))
+    wf._pass(d, queue, torch.zeros((9, 3)), shade, wf._default_intersect, 0,
+             True, 8)
     bad = dict(queue, pixel=queue["pixel"].clone())
     bad["pixel"][0] = 9
     with pytest.raises(checks.CheckError,
-                       match="PT wavefront pixel id out of framebuffer range"):
-        ppt._pt_pass(d, bad, torch.zeros((9, 3)), uniforms, 0,
-                     pw._default_intersect, occ, 8, last=True)
-    with pytest.raises(checks.CheckError, match="PT bounce commit pixel id "
+                       match="wavefront pixel id out of framebuffer range"):
+        wf._pass(d, bad, torch.zeros((9, 3)), shade, wf._default_intersect, 0,
+                 True, 8)
+    with pytest.raises(checks.CheckError, match="bounce commit pixel id "
                        "outside framebuffer/sentinel range"):
-        ppt._pt_pass_bounce(d, bad, torch.zeros((9, 3)), 0, layout, 1,
-                            pw._default_intersect, occ, 8, last=True)
+        wf._pass(d, bad, torch.zeros((9, 3)), shade, wf._default_intersect, 1,
+                 True, 8, n_alive=8)
 
 
 def test_guards_cost_nothing_unarmed(small_scene, monkeypatch):

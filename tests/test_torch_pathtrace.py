@@ -10,7 +10,9 @@ them and handed to the port as numpy.
 Tolerances, each with its reason:
 * ``_onb``/``_cosine_sample``: 1e-6 absolute, the same f32 ops (sqrt, sin
   and cos may round an ulp apart);
-* ``_pt_shade_chunk``: contributions and candidate origins, directions and
+* the shading of one pass (the JAX ``_pt_shade_chunk``, the port's
+  ``closest_hits`` then ``_pt_shade_hits``): contributions and candidate
+  origins, directions and
   throughput within 1e-4 absolute on rows active on both sides (sums over
   lights in another order, pow and the divides of the Fresnel term), and
   ``active`` equal on >= 99.5% of rows: a row whose branch or roulette draw
@@ -19,6 +21,8 @@ Tolerances, each with its reason:
 * a sample through the BVH wrappers against the same sample through brute
   force: within 2 u8 levels on >= 99% of pixels, the Whitted frame gate.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +42,7 @@ from directx_raytracer_tpu_torch.models.scene import scene_from_numpy
 from directx_raytracer_tpu_torch.ops.draws import Layout
 from directx_raytracer_tpu_torch.ops.rays import pick_schedule
 from directx_raytracer_tpu_torch.render import pathtrace as ppt
+from directx_raytracer_tpu_torch.render import wavefront as wf
 from directx_raytracer_tpu_torch.render import whitted as pw
 from directx_raytracer_tpu_torch.render.renderer import Renderer
 from directx_raytracer_tpu_torch.utils.image import to_u8
@@ -145,11 +150,11 @@ def bounce_state(scene, pd):
     state = {k: t(v) for k, v in primary_state(scene).items()}
     geo = pd.geometry
     tile, _ = pick_schedule(H, W)
-    uniforms = ppt._draw(9, Layout.of(tile, W), state["pixel"], 0)
+    shade = functools.partial(ppt._pt_shade, pd, wf._default_occluder(geo),
+                              9, Layout.of(tile, W))
     fb = torch.zeros((W * H + 1, 3))
-    queue, alive = ppt._pt_pass(pd, state, fb, uniforms, 0,
-                                pw._default_intersect,
-                                pw._default_occluder(geo), W * H)
+    queue, alive, _ = wf._pass(pd, state, fb, shade, wf._default_intersect,
+                               0, False, W * H)
     assert alive > 100  # the box fills a small part of the frame
     return {k: v[:alive].numpy() for k, v in queue.items()}
 
@@ -163,10 +168,11 @@ def test_shade_chunk_matches_jax(box, depth):
     jcontrib, jcand = jpt._pt_shade_chunk(
         jd, {k: jnp.asarray(v) for k, v in state.items()}, None, key, depth,
         jw._default_intersect, jw._default_occluder(jd.geometry), defer=True)
-    contrib, cand = ppt._pt_shade_chunk(
-        pd, {k: t(v) for k, v in state.items()},
-        [t(u) for u in jax_uniforms(key, n)], depth, pw._default_intersect,
-        pw._default_occluder(pd.geometry))
+    pstate = {k: t(v) for k, v in state.items()}
+    hit, rec = wf.closest_hits(pd.geometry, pstate, wf._default_intersect)
+    contrib, (cand,) = ppt._pt_shade_hits(
+        pd, wf._default_occluder(pd.geometry), pstate, hit, rec,
+        [t(u) for u in jax_uniforms(key, n)], depth)
 
     assert torch.isfinite(contrib).all() and (contrib >= 0).all()
     np.testing.assert_allclose(contrib.numpy(), np.asarray(jcontrib),

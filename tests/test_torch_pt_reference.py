@@ -43,6 +43,7 @@ from benchmark.scenes import bench_scene  # noqa: E402
 from directx_raytracer_tpu_torch.ops import draws  # noqa: E402
 from directx_raytracer_tpu_torch.ops.rays import pick_schedule  # noqa: E402
 from directx_raytracer_tpu_torch.render import pathtrace as ppt  # noqa: E402
+from directx_raytracer_tpu_torch.render import wavefront as wf  # noqa: E402
 from directx_raytracer_tpu_torch.render.renderer import Renderer  # noqa: E402
 from directx_raytracer_tpu_torch.utils import trace  # noqa: E402
 
@@ -230,17 +231,18 @@ def test_a_sample_adds_no_host_sync(bench):
                         occluder_factory=r.occluder_factory)
     before = dict(trace.COUNTS)
     alive = []
-    real = ppt._pt_pass_bounce
+    real = wf._pass
 
-    def spy(*args, **kwargs):
-        alive.append(args[8])
-        return real(*args, **kwargs)
+    def spy(*args, n_alive=None, **kwargs):
+        if n_alive is not None:  # a bounce pass
+            alive.append(n_alive)
+        return real(*args, n_alive=n_alive, **kwargs)
 
-    ppt._pt_pass_bounce = spy
+    wf._pass = spy
     try:
         pt.step(pos, rot)
     finally:
-        ppt._pt_pass_bounce = real
+        wf._pass = real
     made = {k: v - before.get(k, 0) for k, v in trace.COUNTS.items()
             if v != before.get(k, 0)}
     shading = 1 + sum(a > 0 for a in alive)

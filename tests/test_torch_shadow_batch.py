@@ -12,8 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from directx_raytracer_tpu_torch import testscenes
-from directx_raytracer_tpu_torch.bvh import cuda_intersect as ci
+from directx_raytracer_tpu_torch import kernels, testscenes
 from directx_raytracer_tpu_torch.models.scene import build_device_scene
 from directx_raytracer_tpu_torch.ops import shading as psh
 from directx_raytracer_tpu_torch.ops.intersect import occluded_bruteforce
@@ -281,7 +280,7 @@ def test_wrappers_take_the_plain_chains_for_cpu_tensors(monkeypatch):
     def no_library():
         raise AssertionError("a CPU tensor reached the kernel library")
 
-    monkeypatch.setattr(ci, "_lib", no_library)
+    monkeypatch.setattr(kernels, "_lib", no_library)
     p, nrm, mask, light = batch(300)
     p, nrm, mask = map(torch.from_numpy, (p, nrm, mask))
     light = tuple(map(torch.from_numpy, light))

@@ -48,7 +48,7 @@ PARENTS = {
     "dxrt.query.walk": {"dxrt.query"},
     "dxrt.hit_record": {"dxrt.frame.debug", "dxrt.pass"},
     "dxrt.shade": {"dxrt.frame.debug", "dxrt.pass"},
-    "dxrt.shade.draw": {"dxrt.pass"},
+    "dxrt.shade.draw": {"dxrt.shade"},
     "dxrt.occluder": {"dxrt.shade"},
     "dxrt.occluder.stage": {"dxrt.occluder"},
     "dxrt.occluder.bin": {"dxrt.occluder"},

@@ -45,6 +45,7 @@ from directx_raytracer_tpu_torch.models.scene import LightTable, scene_from_nump
 from directx_raytracer_tpu_torch.ops import intersect as px
 from directx_raytracer_tpu_torch.ops import shading as psh
 from directx_raytracer_tpu_torch.render import render_whitted
+from directx_raytracer_tpu_torch.render import wavefront as wf
 from directx_raytracer_tpu_torch.render import whitted as pw
 from directx_raytracer_tpu_torch.render.renderer import Renderer
 from directx_raytracer_tpu_torch.utils.image import to_u8
@@ -368,7 +369,7 @@ def test_compact_sort_matches_jax(case, capacity):
     jq, jalive, jdrop = jw._compact_sort(
         {k: jnp.asarray(v) for k, v in cand.items()}, capacity,
         jnp.asarray(lo), jnp.asarray(hi), split_at=n)
-    q, alive, drop = pw._compact_sort(
+    q, alive, drop = wf._compact_sort(
         {k: t(v) for k, v in cand.items()}, capacity, t(lo), t(hi), split_at=n)
     n_active = int(cand["active"].sum())
     n_a = int(cand["active"][:n].sum())
@@ -377,7 +378,7 @@ def test_compact_sort_matches_jax(case, capacity):
     assert drop == max(n_active - capacity, 0)
     for k in q:
         np.testing.assert_array_equal(q[k].numpy(), np.asarray(jq[k]), err_msg=k)
-    assert (q["pixel"][alive:] == pw.PIXEL_SENTINEL).all()
+    assert (q["pixel"][alive:] == wf.PIXEL_SENTINEL).all()
     assert (q["origins"][alive:] == 1e30).all()
     if case == "overflow_drops_b":
         assert n_a <= capacity < n_active
@@ -393,8 +394,8 @@ def test_queue_capacity_matches_jax_rule():
     for n_pix, qf in ((2_073_600, 1), (2_073_600, 2), (64 * 48, 1), (33 * 33, 2)):
         q = n_pix * qf
         chunk = -(-max(q // 16, 256) // 256) * 256
-        assert pw.queue_capacity(n_pix, qf) == -(-q // chunk) * chunk
-    assert pw.queue_capacity(2_073_600, 1) == 2_076_672
+        assert wf.queue_capacity(n_pix, qf) == -(-q // chunk) * chunk
+    assert wf.queue_capacity(2_073_600, 1) == 2_076_672
 
 
 # ---------------------------------------------------------------------------
