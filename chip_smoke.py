@@ -36,7 +36,12 @@ Phases, each of which raises (exit code != 0) on failure:
    bounce pass's batch and both shadow batches, any_hit at the primary
    and the bounce pass's shadow batches and closest_hit at the bounce
    pass's batch, each against its plain version and timed beside its
-   bound; then the same Renderer's render_whitted_frame(max_depth=3) with
+   bound; at each shadow batch any_hit's blocked flags must equal, bit for
+   bit, those of its run with cull boxes that drop nothing and those of
+   its counting build (any_hit_exec), whose 32-ray groups tested stay
+   within the open groups of each tile; the cull share (1 - tested / open
+   groups) is printed beside the plain walk's, and the kernel is timed
+   beside its run without the cull and beside its counting build; then the same Renderer's render_whitted_frame(max_depth=3) with
    counters reset just before and read just after (bin_clusters,
    closest_hit and any_hit must launch), checked against the frame
    rendered through the plain versions, one PNG, and its frame time;
@@ -71,7 +76,9 @@ Phases, each of which raises (exit code != 0) on failure:
    batch) at the operands the primary pass (2,073,600 points x 4 lights)
    and the first bounce hand them, bit-equal to their plain chains on the
    card, each timed beside its bound and the chain; one profiled sample
-   for each pass's kernel ms; then the port's own entry point,
+   for each pass's kernel ms, printed beside the cull share of its shadow
+   batch from any_hit_exec (whose blocked flags must equal the frame's);
+   then the port's own entry point,
    viewer.app.main(["pathtrace", "--builtin", "bench_scene", ...]) for 4
    samples with a checkpoint, counters reset just before and read just
    after (bin_clusters, closest_hit, any_hit, pt_draws, shadow_keys and
@@ -157,7 +164,10 @@ closest_hit, any_hit, pt_draws, shadow_keys and shadow_rays also carry
 "batches", one record per batch they
 serve (ms, plain_ms, bound_ms, bound_by and the launches on its path; the
 binning records also the layer's ms: the wrapper with its host sync, by
-CUDA events); their top-level numbers are
+CUDA events; any_hit's also its counting build's ms, its ms with and
+without the cull, its open and tested groups and cull shares:
+``exec_ms``, ``cull_ms``, ``nocull_ms``, ``open_groups``, ``tested``,
+``cull_share``, ``plain_cull_share``); their top-level numbers are
 the first batch's; the shadow kernels' plain_ms is their chain's, and
 their launches are the PT entry point's.  Each walk batch prints its work
 items, longest list, visited of binned pairs and (ray, triangle) tests.
@@ -744,8 +754,8 @@ def plain_fns(bvh):
 
     def factory(geo):
         def occluded(o, d, t_max):
-            return ci.occluded_fused(o, d, bvh.clusters, bvh.wrows, t_max,
-                                     plain=True, srows=bvh.srows)
+            return ci.occluded_fused(o, d, bvh.clusters, bvh.wrows, bvh.crows,
+                                     t_max, plain=True, srows=bvh.srows)
         return occluded
 
     return intersect, factory
@@ -759,34 +769,64 @@ def frames_agree(img, ref) -> float:
 def any_hit_args(o, d, t_max, bvh):
     """The any_hit operands of a shadow batch, as occluded_fused builds
     them."""
-    o, d, t_max, *lists = ci.anyhit_schedule(o, d, t_max, bvh.clusters,
-                                             srows=bvh.srows)
-    return (o, d, t_max, bvh.wrows, *lists, TILE_R)
+    return ci.anyhit_schedule(o, d, t_max, bvh.clusters, bvh.wrows, bvh.crows,
+                              srows=bvh.srows)
+
+
+def without_cull(args):
+    """A walk's operands with cull boxes that drop nothing."""
+    return (*args[:4], ci.unbounded_rows(args[4]), *args[5:])
+
+
+def cull_share(open_groups, tested) -> float:
+    """The share of the 32-ray groups holding an open ray at a visit whose
+    triangle tests the any-hit cull skipped."""
+    return 1.0 - tested / open_groups if open_groups else 0.0
 
 
 def check_any_hit(args, label, must_block=True):
-    """Kernel vs plain version on one shadow batch.  Returns whether any
-    flag differs and the kernel's bound for this batch."""
+    """Kernel vs plain version on one shadow batch, and the cull: blocked
+    bit-equal to the kernel's with cull boxes that drop nothing and to its
+    counting build's; per tile 0 <= tested <= open_groups; the cull share
+    (``cull_share``) printed beside the plain walk's.  Returns whether any
+    flag differs from the plain version's, the kernel's bound for this
+    batch and the cull's counts."""
     b_k = ci.any_hit(*args)
+    b_n = ci.any_hit(*without_cull(args))
+    b_c, open_groups, tested = ci.any_hit(*args, count_exec=True)
     work = {}
     b_p = ci.any_hit_plain(*args, stats=work)
     torch.cuda.synchronize()
     agree = (b_k == b_p).float().mean().item()
-    armed = int((args[2] > 0).sum())
-    counts = args[6]
+    kept, same = torch.equal(b_k, b_n), torch.equal(b_k, b_c)
+    over = int(((tested < 0) | (tested > open_groups)).sum())
+    cull = dict(open_groups=int(open_groups.sum()), tested=int(tested.sum()))
+    cull.update(cull_share=cull_share(cull["open_groups"], cull["tested"]),
+                plain_cull_share=cull_share(work["open_groups"],
+                                            work["tested"]))
+    armed = int((args[2] > T_MIN).sum())
+    counts = args[7]
     items = ci.anyhit_work_items(counts)
     print(f"[{label}] any_hit: {counts.shape[0]} tiles x {args[-1]} rays "
-          f"({armed} armed), longest list {args[4].shape[1]}, "
+          f"({armed} armed), longest list {args[5].shape[1]}, "
           f"{items[0].shape[0]} work items, "
           f"{int(b_p.sum())} blocked; blocked agreement {agree:.6f}; the "
           f"walk visits {work['visits']} of {int(counts.sum())} binned pairs, "
-          f"{work['tests']} (ray, triangle) tests")
+          f"{work['tests']} (ray, triangle) tests; blocked bit-equal without "
+          f"the cull: {kept}, in the counting build: {same}; cull share "
+          f"{cull['cull_share'] * 100:.2f}% ({cull['tested']} of "
+          f"{cull['open_groups']} open 32-ray groups tested), plain walk "
+          f"{cull['plain_cull_share'] * 100:.2f}%")
     require(agree >= BLOCKED_AGREE, f"any_hit blocked agreement {agree}")
     require(int(b_p.sum()) > 0 or not must_block,
             "the shadow batch blocks no ray")
+    require(kept, f"the cull changes any_hit's blocked flags at the {label}")
+    require(same, f"any_hit_exec changes the blocked flags at the {label}")
+    require(over == 0, f"any_hit_exec at the {label}: {over} tiles test "
+                       f"more groups than they hold open")
     walk_bound = bound(walk_bytes(args) + nbytes(*items) + b_k.numel(),
                        work["tests"] * PAIR_TEST_OPS)
-    return float((b_k != b_p).any()), walk_bound
+    return float((b_k != b_p).any()), walk_bound, cull
 
 
 def small_shadow_batch(device):
@@ -876,10 +916,23 @@ class Held:
         self.bin.append(rec)
         self.bin_err = max(self.bin_err, err)
         args = any_hit_args(o, d, t_max, r.bvh)
-        err, walk_bound = check_any_hit(args, label, must_block=must_block)
-        self.any.append(batch_record(label, ci.any_hit, ci.any_hit_plain, args,
-                                     walk_bound, launches["any_hit"], card,
-                                     **plain_timing))
+        err, walk_bound, cull = check_any_hit(args, label,
+                                              must_block=must_block)
+        rec = batch_record(label, ci.any_hit, ci.any_hit_plain, args,
+                           walk_bound, launches["any_hit"], card,
+                           **plain_timing)
+        rec["exec_ms"] = time_ms(lambda: ci.any_hit(*args, count_exec=True),
+                                 KERNEL_REPS)
+        free = without_cull(args)
+        rec["cull_ms"], rec["nocull_ms"] = time_both(
+            lambda: ci.any_hit(*args), lambda: ci.any_hit(*free))
+        rec.update(cull)
+        print(f"any_hit at the {label} batch: {rec['cull_ms']:.4f} ms with "
+              f"the cull, {rec['nocull_ms']:.4f} ms with boxes that drop "
+              f"nothing (medians in turns), counting build "
+              f"{rec['exec_ms']:.4f} ms (CUDA events); cull share "
+              f"{cull['cull_share'] * 100:.2f}% [{card}]")
+        self.any.append(rec)
         self.any_err = max(self.any_err, err)
 
     def into(self, records):
@@ -1114,13 +1167,19 @@ def pt_path(r, card):
             before = trace.launches()
             blocked = occluded(o, d, t_max)
             made = launched(before)
-            counts = ci.anyhit_schedule(o, d, t_max, r.bvh.clusters,
-                                        srows=r.bvh.srows)[5]
+            args = any_hit_args(o, d, t_max, r.bvh)
+            counts = args[7]
+            b_c, open_groups, tested = ci.any_hit(*args, count_exec=True)
+            require(torch.equal(b_c[:o.shape[0]], blocked),
+                    f"any_hit_exec changes the blocked flags of PT pass "
+                    f"{len(passes) - 1}'s shadow batch")
             passes[-1].update(
                 shadow_rays=o.shape[0], shadow_armed=int((t_max > T_MIN).sum()),
                 shadow_tiles=counts.shape[0], shadow_listed=int(counts.sum()),
                 shadow_longest=int(counts.max()),
-                shadow_items=ci.anyhit_work_items(counts)[0].shape[0])
+                shadow_items=ci.anyhit_work_items(counts)[0].shape[0],
+                shadow_open=int(open_groups.sum()),
+                shadow_tested=int(tested.sum()))
             if len(passes) == 2:
                 kept["shadow"] = (o.clone(), d.clone(), t_max.clone(), made)
             return blocked
@@ -1198,7 +1257,10 @@ def pt_path(r, card):
               f"{p['shadow_tiles']} tiles: {p['shadow_listed']} listed pairs, "
               f"longest list {p['shadow_longest']}, {p['shadow_items']} work "
               f"items; bin_lists {ms[5]} ms, any_hit {ms[6]} ms "
-              f"(device time, profiler) [{card}]")
+              f"(device time, profiler), cull share "
+              f"{cull_share(p['shadow_open'], p['shadow_tested']) * 100:.2f}% "
+              f"({p['shadow_tested']} of {p['shadow_open']} open 32-ray "
+              f"groups tested, any_hit_exec) [{card}]")
 
     # The kernels at the first bounce pass's batches, against their plain
     # versions (one timed plain call each: the walks are long here).
@@ -1831,7 +1893,7 @@ def count_build_batch(label, b, launches, card):
     batch's record and the largest t difference to the plain walk among
     equal winners."""
     args, counts = b.args(), b.counts
-    nocull_args = (*args[:4], ci.unbounded_rows(args[4]), *args[5:])
+    nocull_args = without_cull(args)
     prod = ci.closest_hit(*args, width=b.width)
     nocull = ci.closest_hit(*nocull_args, width=b.width)
     bt, bs, executed, tested = ci.closest_hit(*args, width=b.width,

@@ -41,7 +41,9 @@ class BVH:
     (C, K, 12) triangle-major Woop rows (``woop_rows``: the clusters' Woop
     blocks as they are, read by the closest-hit and any-hit walks), (8, S)
     superblock hull rows (``super_rows``, read by the superblock binner)
-    and (C, 8) cull boxes (``cull_rows``, read by the closest-hit walk)."""
+    and (C, 8) cull boxes (``cull_rows``, read by both walks: each warp
+    skips a cluster's triangle tests when none of its rays can take a hit,
+    or be blocked, inside the cluster's box)."""
 
     clusters: ClusterSet
     wrows: torch.Tensor
@@ -92,7 +94,7 @@ def make_bvh_occluder_factory(bvh: BVH, use_kernels: bool = True,
         if use_kernels:
             def occluded(origins, dirs, max_t):
                 return occluded_fused(origins, dirs, bvh.clusters, bvh.wrows,
-                                      max_t, srows=bvh.srows)
+                                      bvh.crows, max_t, srows=bvh.srows)
         else:
             def occluded(origins, dirs, max_t):
                 return occluded_clustered(origins, dirs, bvh.clusters, max_t,

@@ -36,6 +36,11 @@ bounds each tile over its armed rays only, caps its binning at its largest
 t_max, and runs ``any_hit``, which stops a tile once the next entry
 exceeds the largest t_max of its still-unblocked rays.
 
+Both walks cull by the clusters' boxes (``cull_rows``, made once per BVH
+as ``BVH.crows``): at each visit a warp runs a cluster's triangle tests
+only if one of its rays can still take a hit, or be blocked, inside the
+cluster's box; the results are those of testing every ray.
+
 Each kernel has a plain torch version here (``bin_lists_plain``, built on
 the (T, C) reference ``bin_clusters_plain``/``bin_clusters_super_plain``,
 ``closest_hit_plain``, ``any_hit_plain``) computing the same function; the
@@ -332,15 +337,15 @@ def woop_rows(cs: ClusterSet) -> torch.Tensor:
 
 
 CULL_GAMMA = 2.0 ** -16  # the cull boxes' margin per unit of error scale
-CULL_GROUP = 32  # rays a warp tests together in closest_hit (one warp's j-th)
+CULL_GROUP = 32  # rays a warp culls together (closest_hit: its j-th rays)
 CULL_ROWS_CHUNK = 1024  # clusters a step of cull_rows' float64 bounds
 
 
 def cull_rows(wrows: torch.Tensor) -> torch.Tensor:
     """(C, 8) f32 cull boxes [lo xyz | hi xyz | f | 0], one a cluster of
-    ``wrows`` (``woop_rows``): closest_hit tests a ray against a cluster's
+    ``wrows`` (``woop_rows``): the walks test a ray against a cluster's
     triangles only if it meets the box grown by ``f * max|o|`` at some t in
-    [t_min, its best t].
+    [t_min, end], end its best t (closest_hit) or its t_max (any_hit).
 
     The box must hold every point o + t d at which the Woop test accepts
     one of the cluster's triangles, rounding included, so it is taken from
@@ -362,7 +367,20 @@ def cull_rows(wrows: torch.Tensor) -> torch.Tensor:
     another's.  Sentinel rows (zero linear part) never accept and add
     nothing; a cluster of sentinels only has an empty box (lo > hi); a
     cluster whose bound is not finite has an unbounded one.  Made once per
-    BVH (``build_bvh``); nothing of it runs a frame."""
+    BVH (``build_bvh``); nothing of it runs a frame.
+
+    Why one margin serves both walks.  The bound is on where an ACCEPTED
+    point lies, whatever t the walk asks about: t enters it only through
+    |t d| <= |o| + |p|, which holds at every accepted t.  A pair the
+    closest-hit walk needs is accepted at t_min <= t <= best; a pair that
+    blocks a shadow ray at t_min <= t < t_max, so its t lies in [t_min,
+    t_max], the interval the any-hit cull slab-tests (closed at t_max: one
+    end wider than the walk needs, never narrower).  Its point lies in the
+    grown box, so the ray's segment over that interval meets the box and
+    the pair is kept, as a closest hit at t <= best is.  The slab test's
+    own rounding, a few ulp of each face distance and of each t, lies far
+    inside the margin's 2^-15 |o|.  The any-hit walk lets only live, armed
+    (t_max > t_min) and unblocked rays vote."""
     c = wrows.shape[0]
     # In chunks of clusters: the float64 temporaries of a 1M-triangle scene
     # would take ~0.1 GB at once.
@@ -429,10 +447,11 @@ def _woop_bounds(wrows):
 
 
 def cull_keep(o, d, best, box, t_min=T_MIN):
-    """The plain twin of closest_hit's cull: whether each ray (o, d) (..., 3)
-    meets the cull box ``box`` (..., 8) (a row of ``cull_rows``, broadcast
-    against the rays) grown by ``f * max|o|`` at some t in [t_min, best],
-    (...) bool.  The kernel's arithmetic, up to FMA contraction: a zero
+    """The plain twin of the walks' cull (walk.cuh ``needs_box``): whether
+    each ray (o, d) (..., 3) meets the cull box ``box`` (..., 8) (a row of
+    ``cull_rows``, broadcast against the rays) grown by ``f * max|o|`` at
+    some t in [t_min, best], (...) bool; the any-hit walk passes t_max as
+    best.  The kernel's arithmetic, up to FMA contraction: a zero
     direction component's infinite reciprocal gives +-inf or, in a face's
     plane, NaN, which the NaN-dropping fmax/fmin keep."""
     po = box[..., 6] * o.abs().amax(dim=-1)
@@ -448,6 +467,15 @@ def cull_keep(o, d, best, box, t_min=T_MIN):
         entry = torch.fmax(entry, near[..., ax])
         exit_ = torch.fmin(exit_, far[..., ax])
     return entry <= exit_
+
+
+def _group_any(mask: torch.Tensor, tile_r: int) -> torch.Tensor:
+    """(A, ceil(tile_r / 32)) bool: whether each 32-ray group of the tiles'
+    rays ``mask`` (A, tile_r) holds a True (a walk's warp; the last group of
+    a tile that is no multiple of 32 holds its tail)."""
+    groups = -(-tile_r // CULL_GROUP)
+    mask = torch.nn.functional.pad(mask, (0, groups * CULL_GROUP - tile_r))
+    return mask.reshape(-1, groups, CULL_GROUP).any(dim=2)
 
 
 def _woop_tests(w, o, d, sel):
@@ -512,11 +540,9 @@ def closest_hit_plain(origins, dirs, init_t, wrows, crows, visit, ventry,
             cl = visit[sel, i]
             bt, bs = best_t[sel], best_slot[sel]
             if count_exec or stats is not None:
-                keep = cull_keep(o[sel], d[sel], bt, crows[cl.long(), None],
-                                 t_min)
-                keep = torch.nn.functional.pad(keep, (0, groups * CULL_GROUP
-                                                      - tile_r))
-                kept = keep.reshape(-1, groups, CULL_GROUP).any(dim=2)
+                kept = _group_any(cull_keep(o[sel], d[sel], bt,
+                                            crows[cl.long(), None], t_min),
+                                  tile_r)
                 tested[sel] += kept.sum(dim=1, dtype=torch.int32)
                 if stats is not None:
                     stats["kept_tests"] = (stats.get("kept_tests", 0)
@@ -637,24 +663,37 @@ def closest_hit(origins, dirs, init_t, wrows, crows, visit, ventry, counts,
 # ---------------------------------------------------------------------------
 
 
-def any_hit_plain(origins, dirs, t_max, wrows, visit, ventry, counts,
-                  tile_r: int, t_min=T_MIN, stats=None):
+def any_hit_plain(origins, dirs, t_max, wrows, crows, visit, ventry, counts,
+                  tile_r: int, t_min=T_MIN, stats=None,
+                  count_exec: bool = False):
     """Plain torch version of ``any_hit``: the same per-tile walk, one list
     position at a time for all live tiles at once (in chunks of
-    ``PLAIN_CHUNK`` tiles).  A tile stops at the first entry past the
-    largest t_max of its still-unblocked rays.  Same float-op order as the
-    kernel up to FMA contraction.  Returns blocked (N,) bool.
+    ``PLAIN_CHUNK`` tiles), with the kernel's cull.  A tile stops at the
+    first entry past the largest t_max of its still-unblocked rays.  At a
+    visit, a 32-ray group runs the cluster's tests only if one of its open
+    rays (armed, t_max > t_min, and not yet blocked) meets the cluster's
+    cull box before its t_max (``cull_keep`` against ``crows``,
+    ``cull_rows(wrows)``; ``unbounded_rows(crows)`` gives the walk without
+    the cull, which the cull's checks hold it to).  Same float-op order as
+    the kernel up to FMA contraction.  Returns blocked (N,) bool; with
+    ``count_exec`` also open_groups and tested (T,) i32, each tile's 32-ray
+    groups that held an open ray at a visit and those whose tests ran.
 
     ``stats``, a dict, gets the work the walk's early-out leaves: the
-    (tile, cluster) pairs visited under ``"visits"`` and, under
-    ``"tests"``, K (ray, triangle) tests for each armed ray not yet blocked
-    when its tile visits a cluster."""
+    (tile, cluster) pairs visited under ``"visits"``, K (ray, triangle)
+    tests for each open ray of a visit under ``"tests"`` (whatever the cull
+    skips), and the sums of open_groups and tested under ``"open_groups"``
+    and ``"tested"``."""
     tiles = counts.shape[0]
+    k = wrows.shape[1]
     o = origins.reshape(tiles, tile_r, 3)
     d = dirs.reshape(tiles, tile_r, 3)
     tm = t_max.reshape(tiles, tile_r)
     blocked = torch.zeros((tiles, tile_r), dtype=torch.bool,
                           device=origins.device)
+    open_groups = torch.zeros((tiles,), dtype=torch.int32,
+                              device=origins.device)
+    tested = torch.zeros_like(open_groups)
     for i in range(visit.shape[1]):
         # Entries ascend along a list and the gate only falls, so a tile
         # that stops here never resumes.
@@ -666,13 +705,27 @@ def any_hit_plain(origins, dirs, t_max, wrows, visit, ventry, counts,
         if stats is not None:
             open_rays = int(((tm[idx] > t_min) & ~blocked[idx]).sum())
             stats["visits"] = stats.get("visits", 0) + idx.numel()
-            stats["tests"] = (stats.get("tests", 0)
-                              + open_rays * wrows.shape[1])
+            stats["tests"] = stats.get("tests", 0) + open_rays * k
         for sel in idx.split(PLAIN_CHUNK):
-            t, u, v = _woop_tests(wrows[visit[sel, i].long()], o, d, sel)
+            cl = visit[sel, i].long()
+            tms = tm[sel]
+            open_ = (tms > t_min) & ~blocked[sel]
+            opened = _group_any(open_, tile_r)
+            run = _group_any(open_ & cull_keep(o[sel], d[sel], tms,
+                                               crows[cl, None], t_min), tile_r)
+            open_groups[sel] += opened.sum(dim=1, dtype=torch.int32)
+            tested[sel] += run.sum(dim=1, dtype=torch.int32)
+            t, u, v = _woop_tests(wrows[cl], o, d, sel)
             ok = ((u >= 0) & (v >= 0) & (1.0 - u - v >= 0) & (t >= t_min)
-                  & (t < tm[sel, :, None]))
-            blocked[sel] |= ok.any(dim=2)
+                  & (t < tms[:, :, None]))
+            runs = run.repeat_interleave(CULL_GROUP, dim=1)[:, :tile_r]
+            blocked[sel] |= ok.any(dim=2) & runs
+    if stats is not None:
+        stats["open_groups"] = (stats.get("open_groups", 0)
+                                + int(open_groups.sum()))
+        stats["tested"] = stats.get("tested", 0) + int(tested.sum())
+    if count_exec:
+        return blocked.reshape(-1), open_groups, tested
     return blocked.reshape(-1)
 
 
@@ -692,21 +745,35 @@ def anyhit_work_items(counts: torch.Tensor, chunk: int = ANYHIT_CHUNK):
     return work_tile.to(torch.int32), start.to(torch.int32)
 
 
-def any_hit(origins, dirs, t_max, wrows, visit, ventry, counts,
-            tile_r: int, t_min=T_MIN):
+def any_hit(origins, dirs, t_max, wrows, crows, visit, ventry, counts,
+            tile_r: int, t_min=T_MIN, count_exec: bool = False):
     """Whether some triangle of its tile's visit list lies in [t_min,
     t_max) along each ray: the ``any_hit`` kernel for CUDA tensors, its
     plain version for CPU tensors.  Rays with t_max <= t_min are never
-    blocked.  Returns blocked (N,) bool.
+    blocked.  Returns blocked (N,) bool.  ``crows`` is ``cull_rows(wrows)``:
+    at each visit a warp runs the triangle tests of its rays only if one of
+    its open rays (armed and not yet blocked) meets the cluster's cull box
+    before its t_max; blocked is that of a walk that tests every open ray.
+
+    ``count_exec=True`` launches the kernel's counting build (counted as
+    "any_hit_exec"; the same blocked) and also returns open_groups and
+    tested (T,) i32: each tile's 32-ray groups that held an open ray at the
+    visits its work items executed, and those whose triangle tests ran (1 -
+    tested / open_groups is the share the cull skips).  On CPU tensors they
+    are the plain walk's (``any_hit_plain``).  The kernel's equal the plain
+    walk's on a tile whose list is one work item, but where FMA contraction
+    flips a knife-edge test, and are no fewer on the others: a later item
+    starts with no ray blocked.
 
     The kernel cuts each tile's list into work items of ``ANYHIT_CHUNK``
-    positions that run in parallel (occlusion is an OR over clusters, so
-    the result is the walk's); sizing the grid is one host sync.
-    ``visit``/``ventry`` (T, stride) hold each tile's list in its first
-    counts[t] positions; nothing past them is read."""
+    positions that run in parallel (occlusion is an OR over clusters, so the
+    result is the walk's); sizing the grid is one host sync.  ``visit``/``ventry``
+    (T, stride) hold each tile's list in its first counts[t] positions;
+    nothing past them is read."""
     if origins.device.type == "cpu":
-        return any_hit_plain(origins, dirs, t_max, wrows, visit, ventry,
-                             counts, tile_r, t_min)
+        return any_hit_plain(origins, dirs, t_max, wrows, crows, visit,
+                             ventry, counts, tile_r, t_min,
+                             count_exec=count_exec)
     if not 1 <= tile_r <= ANYHIT_MAX_TILE_R:
         raise ValueError(f"tile_r {tile_r} outside [1, {ANYHIT_MAX_TILE_R}]")
     dev = origins.device
@@ -717,19 +784,31 @@ def any_hit(origins, dirs, t_max, wrows, visit, ventry, counts,
     check_tensor("dirs", dirs, torch.float32, (n, 3), dev)
     check_tensor("t_max", t_max, torch.float32, (n,), dev)
     check_tensor("wrows", wrows, torch.float32, (c, k, 12), dev)
+    check_tensor("crows", crows, torch.float32, (c, 8), dev)
+    if crows.data_ptr() % 16:
+        raise ValueError("crows: not 16-byte aligned")
     check_tensor("visit", visit, torch.int32, (tiles, stride), dev)
     check_tensor("ventry", ventry, torch.float32, (tiles, stride), dev)
     check_tensor("counts", counts, torch.int32, (tiles,), dev)
     blocked = torch.zeros((n,), dtype=torch.uint8, device=dev)
+    open_groups = tested = None
+    if count_exec:
+        open_groups = torch.zeros((tiles,), dtype=torch.int32, device=dev)
+        tested = torch.zeros((tiles,), dtype=torch.int32, device=dev)
     with span("dxrt.occluder.items"):
         work_tile, work_start = anyhit_work_items(counts)
     n_items = work_tile.shape[0]
     if n_items:
-        launch("any_hit", "dxrt_any_hit", dev, origins.data_ptr(),
-               dirs.data_ptr(), t_max.data_ptr(), wrows.data_ptr(),
-               visit.data_ptr(), ventry.data_ptr(), counts.data_ptr(),
-               work_tile.data_ptr(), work_start.data_ptr(), blocked.data_ptr(),
-               n_items, tile_r, stride, k, t_min, ANYHIT_CHUNK)
+        launch("any_hit_exec" if count_exec else "any_hit", "dxrt_any_hit",
+               dev, origins.data_ptr(), dirs.data_ptr(), t_max.data_ptr(),
+               wrows.data_ptr(), crows.data_ptr(), visit.data_ptr(),
+               ventry.data_ptr(), counts.data_ptr(), work_tile.data_ptr(),
+               work_start.data_ptr(), blocked.data_ptr(),
+               None if open_groups is None else open_groups.data_ptr(),
+               None if tested is None else tested.data_ptr(), n_items, tile_r,
+               stride, k, t_min, ANYHIT_CHUNK)
+    if count_exec:
+        return blocked.view(torch.bool), open_groups, tested
     return blocked.view(torch.bool)
 
 
@@ -863,13 +942,14 @@ def pad_and_cap(origins, dirs, t_max, tile_r: int):
     return origins.contiguous(), dirs.contiguous(), t_max.contiguous(), t_cap
 
 
-def anyhit_schedule(origins, dirs, t_max, cs: ClusterSet, tile_r: int = TILE_R,
-                    plain: bool = False, srows=None):
+def anyhit_schedule(origins, dirs, t_max, cs: ClusterSet, wrows, crows,
+                    tile_r: int = TILE_R, plain: bool = False, srows=None):
     """The any-hit walk's operands for a shadow batch: rays padded to whole
     tiles (``pad_and_cap``), each tile bounded over its ARMED rays
     (t_max > T_MIN) only and capped at its largest t_max, binned, and cut
-    into visit lists (``bin_lists``).  Returns (origins, dirs, t_max,
-    visit, ventry, counts).
+    into visit lists (``bin_lists``).  Returns ``any_hit``'s positional
+    operands (origins, dirs, t_max, wrows, crows, visit, ventry, counts,
+    tile_r), the clusters' Woop rows and cull boxes passed through.
 
     Bounding over armed rays is exact (a disarmed ray is never blocked) and
     matters: a Morton-sorted shadow batch has one tile per light where the
@@ -884,19 +964,20 @@ def anyhit_schedule(origins, dirs, t_max, cs: ClusterSet, tile_r: int = TILE_R,
         cb = cluster_rows(cs)
     with span("dxrt.occluder.bin"):
         visit, ventry, counts, _ = bin_lists(tp, cb, srows, plain=plain)
-    return origins, dirs, t_max, visit, ventry, counts
+    return origins, dirs, t_max, wrows, crows, visit, ventry, counts, tile_r
 
 
-def occluded_fused(origins, dirs, cs: ClusterSet, wrows, t_max,
+def occluded_fused(origins, dirs, cs: ClusterSet, wrows, crows, t_max,
                    tile_r: int = TILE_R, plain: bool = False,
                    srows=None) -> torch.Tensor:
     """Any hit: (N,) bool, True where a triangle lies in [T_MIN, t_max[i])
     along ray i: ``anyhit_schedule``, then the any-hit walk (the span
     ``dxrt.occluder.walk``, with the kernel path's ``dxrt.occluder.items``
-    inside).  ``wrows``, ``srows`` and ``plain`` as in ``intersect_fused``."""
-    o, d, tm, visit, ventry, counts = anyhit_schedule(
-        origins, dirs, t_max, cs, tile_r, plain, srows)
+    inside).  ``wrows``, ``srows`` and ``plain`` as in ``intersect_fused``;
+    ``crows`` is ``cull_rows(wrows)``, which a caller holding a BVH passes
+    as ``bvh.crows`` (the query never builds it)."""
+    args = anyhit_schedule(origins, dirs, t_max, cs, wrows, crows, tile_r,
+                           plain, srows)
     with span("dxrt.occluder.walk"):
-        blocked = (any_hit_plain if plain else any_hit)(
-            o, d, tm, wrows, visit, ventry, counts, tile_r)
+        blocked = (any_hit_plain if plain else any_hit)(*args)
         return blocked[:origins.shape[0]]

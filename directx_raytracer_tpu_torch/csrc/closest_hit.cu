@@ -106,44 +106,6 @@ __device__ __forceinline__ float key_time(unsigned long long key) {
   return __uint_as_float(static_cast<uint32_t>(key >> 32));
 }
 
-// Start copying one cluster's cull box [lo xyz, hi xyz, f, 0] (``cull_rows``,
-// two float4 pieces) beside its rows; the next stage_cluster commits it.
-__device__ __forceinline__ void stage_box(float4* dst, const float4* src) {
-  if (threadIdx.x < 2) {
-    const uint32_t d = static_cast<uint32_t>(
-        __cvta_generic_to_shared(dst + threadIdx.x));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src + threadIdx.x)
-                 : "memory");
-  }
-}
-
-// Whether a ray can take a hit at t in [t_min, best] in the cluster of box
-// `box`: its slab test against the box grown by f * |o|_inf.  A zero
-// direction component gives an infinite reciprocal, so (l - o) * inv is
-// +-inf or, for a ray in a face's plane, NaN; fmaxf/fminf drop a NaN,
-// which keeps the ray (the plane lies in the closed box).  A lane past the
-// tile holds best = -inf and never needs a cluster.
-__device__ __forceinline__ bool needs_box(const float4* box, const Ray& r,
-                                          float best, float t_min) {
-  const float4 b0 = box[0], b1 = box[1];
-  const float po =
-      b1.z * fmaxf(fabsf(r.ox), fmaxf(fabsf(r.oy), fabsf(r.oz)));
-  float entry = t_min, exit = best;
-  const float lo[3] = {b0.x, b0.y, b0.z}, hi[3] = {b0.w, b1.x, b1.y};
-  const float o[3] = {r.ox, r.oy, r.oz}, d[3] = {r.dx, r.dy, r.dz};
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float inv = __frcp_rn(d[a]);
-    const float tl = (lo[a] - po - o[a]) * inv;
-    const float th = (hi[a] + po - o[a]) * inv;
-    const bool neg = signbit(d[a]);
-    entry = fmaxf(entry, neg ? th : tl);
-    exit = fminf(exit, neg ? tl : th);
-  }
-  return entry <= exit;
-}
-
 // Walk list positions [start, end) of one tile, merging into its keys (and
 // with kCountExec adding the positions executed to executed[tile] and the
 // 32-ray groups whose triangle loop ran to tested[tile]).
@@ -185,7 +147,8 @@ __device__ __forceinline__ void walk_item(
   int n_tested = 0;
 
   // The box first: stage_cluster's commit group takes its copies too.
-  stage_box(s_ring + pieces, crows + 2 * static_cast<size_t>(vlist[start]));
+  dxrt::stage_box(s_ring + pieces,
+                  crows + 2 * static_cast<size_t>(vlist[start]));
   dxrt::stage_cluster(s_ring, wrows + static_cast<size_t>(vlist[start]) * pieces,
                       pieces);
   int buf = 0;
@@ -212,7 +175,7 @@ __device__ __forceinline__ void walk_item(
     if (i + 1 < end) {
       const int next = vlist[i + 1];
       float4* dst = s_ring + (buf ^ 1) * stride;
-      stage_box(dst + pieces, crows + 2 * static_cast<size_t>(next));
+      dxrt::stage_box(dst + pieces, crows + 2 * static_cast<size_t>(next));
       dxrt::stage_cluster(dst, wrows + static_cast<size_t>(next) * pieces,
                           pieces);
     }
@@ -224,8 +187,9 @@ __device__ __forceinline__ void walk_item(
     bool any = false;
 #pragma unroll
     for (int j = 0; j < kRaysPerThread; ++j) {
-      run[j] = __any_sync(0xffffffffu, needs_box(w + pieces, ray[j],
-                                                 fminf(bt[j], kt[j]), t_min));
+      run[j] = __any_sync(0xffffffffu,
+                          dxrt::needs_box(w + pieces, ray[j],
+                                          fminf(bt[j], kt[j]), t_min));
       any |= run[j];
       if constexpr (kCountExec) n_tested += run[j];
     }

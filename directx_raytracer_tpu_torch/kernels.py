@@ -109,7 +109,7 @@ def _lib() -> ctypes.CDLL:
     lib.dxrt_bin_lists.restype = i
     lib.dxrt_closest_hit.argtypes = [p] * 13 + [i, i, i, i, i, f, i, p]
     lib.dxrt_closest_hit.restype = i
-    lib.dxrt_any_hit.argtypes = [p] * 10 + [i, i, i, i, f, i, p]
+    lib.dxrt_any_hit.argtypes = [p] * 13 + [i, i, i, i, f, i, p]
     lib.dxrt_any_hit.restype = i
     lib.dxrt_precision_fold.argtypes = [p, p, p, i, i, p]
     lib.dxrt_precision_fold.restype = i

@@ -178,8 +178,8 @@ def kernel_smoke(device="cuda", n_tris: int = 3_000, width: int = 64,
             raise GateError(f"kernel smoke: winner/t mismatch {out}")
     t_max = torch.full((o.shape[0],), 25.0, device=o.device)
     ob = occluded_bruteforce(o, dd, d.geometry.woop, t_max)
-    op = occluded_fused(o, dd, bvh.clusters, bvh.wrows, t_max, tile_r=256,
-                        srows=bvh.srows)
+    op = occluded_fused(o, dd, bvh.clusters, bvh.wrows, bvh.crows, t_max,
+                        tile_r=256, srows=bvh.srows)
     out["occluded_agree"] = (ob == op).float().mean().item()
     if out["occluded_agree"] < OCC_AGREE:
         raise GateError(f"kernel smoke: occlusion agreement {out['occluded_agree']}")

@@ -40,9 +40,9 @@ adds, ``reset()`` clears; a key never counted reads 0.
 
 * ``launch.<kernel>``: launches of a hand-written kernel
   (``bin_clusters``, ``bin_clusters_super``, ``closest_hit``,
-  ``closest_hit_exec``, ``any_hit``, ``pt_draws``, ``shadow_keys``,
-  ``shadow_rays``, ``precision_micro.<variant>``); the plain versions never
-  count.  ``shadow_keys`` and ``shadow_rays`` launch once each per shadow
+  ``closest_hit_exec``, ``any_hit``, ``any_hit_exec``, ``pt_draws``,
+  ``shadow_keys``, ``shadow_rays``, ``precision_micro.<variant>``); the
+  plain versions never count.  ``shadow_keys`` and ``shadow_rays`` launch once each per shadow
   batch on the card (one a shading pass that has an occluder), inside its
   ``dxrt.occluder`` spans.  ``launches()`` gives them by kernel.
 * ``sync.<site>``: each point where a frame's host thread waits for the

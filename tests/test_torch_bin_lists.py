@@ -226,9 +226,11 @@ def test_walks_read_nothing_past_counts(fx):
         assert torch.equal(a, b)
 
     tm = torch.where(torch.arange(fx.o.shape[0]) % 3 == 0, 0.0, 25.0)
-    o, d, tm, visit, ventry, counts = ci.anyhit_schedule(fx.o, fx.d, tm, fx.cs)
-    want = ci.any_hit_plain(o, d, tm, fx.wrows, visit, ventry, counts, tile_r)
-    got = ci.any_hit(o, d, tm, fx.wrows,
+    o, d, tm, _, _, visit, ventry, counts, _ = ci.anyhit_schedule(
+        fx.o, fx.d, tm, fx.cs, fx.wrows, crows)
+    want = ci.any_hit_plain(o, d, tm, fx.wrows, crows, visit, ventry, counts,
+                            tile_r)
+    got = ci.any_hit(o, d, tm, fx.wrows, crows,
                      *poisoned(visit, ventry, counts, c + 5), counts, tile_r)
     assert want.any() and torch.equal(got, want)
 

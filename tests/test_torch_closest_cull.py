@@ -124,18 +124,23 @@ def adversarial_rays(verts, seed: int = 1):
     return torch.from_numpy(o), torch.from_numpy(d)
 
 
-def accepted_t(wrows, o, d, t_min=T_MIN):
-    """The least t at which each ray's Woop test accepts a triangle of each
-    cluster (R, C), +inf where none does: the plain walks' pair test."""
-    c = wrows.shape[0]
-    r = o.shape[0]
-    out = torch.full((r, c), float("inf"))
-    for cl in range(c):
+def accepted_ts(wrows, o, d, t_min=T_MIN):
+    """t of each ray's Woop test against each triangle of each cluster
+    (R, C, K), +inf where the test refuses: the plain walks' pair test."""
+    out = torch.full((o.shape[0], wrows.shape[0], wrows.shape[1]),
+                     float("inf"))
+    for cl in range(wrows.shape[0]):
         t, u, v = ci._woop_tests(wrows[cl][None], o[None], d[None],
                                  torch.tensor([0]))
         ok = (u >= 0) & (v >= 0) & (1.0 - u - v >= 0) & (t >= t_min)
-        out[:, cl] = torch.where(ok, t, float("inf")).amin(dim=2)[0]
+        out[:, cl] = torch.where(ok, t, float("inf"))[0]
     return out
+
+
+def accepted_t(wrows, o, d, t_min=T_MIN):
+    """The least t at which each ray's Woop test accepts a triangle of each
+    cluster (R, C), +inf where none does."""
+    return accepted_ts(wrows, o, d, t_min).amin(dim=2)
 
 
 def assert_keeps_accepted(wrows, o, d):
@@ -156,12 +161,13 @@ def adversarial():
     return wrows, verts, *adversarial_rays(verts)
 
 
-@pytest.mark.parametrize("case", ["all", "random", "axis", "edge", "near",
-                                  "face_plane"])
-def test_cull_keeps_every_accepted_pair_adversarial(adversarial, case):
-    """The adversarial rays, by kind: each cluster of them must keep every
-    pair its Woop test accepts at t <= best."""
-    wrows, _, o, d = adversarial
+ADVERSARIAL_KINDS = ["all", "random", "axis", "edge", "near", "face_plane"]
+
+
+def adversarial_kind(o, d, case):
+    """The rays of ``adversarial_rays`` of one kind (``ADVERSARIAL_KINDS``):
+    by direction (random, axis, edge), by origin (near: 1e-3 away, inside
+    the box; face_plane: on the plane of the entry face), or all."""
     per_target = 10
     # adversarial_rays' order: per direction j, distances 3.0 and 1e-3,
     # then for the axis directions the face-plane origins.
@@ -176,8 +182,15 @@ def test_cull_keeps_every_accepted_pair_adversarial(adversarial, case):
     d3 = d.reshape(tris, len(kinds), per_target, 3)
     pick = [i for i, (dk, where) in enumerate(kinds)
             if case == "all" or case in (dk, where)]
-    pairs = assert_keeps_accepted(wrows, o3[:, pick].reshape(-1, 3),
-                                  d3[:, pick].reshape(-1, 3))
+    return o3[:, pick].reshape(-1, 3), d3[:, pick].reshape(-1, 3)
+
+
+@pytest.mark.parametrize("case", ADVERSARIAL_KINDS)
+def test_cull_keeps_every_accepted_pair_adversarial(adversarial, case):
+    """The adversarial rays, by kind: each cluster of them must keep every
+    pair its Woop test accepts at t <= best."""
+    wrows, _, o, d = adversarial
+    pairs = assert_keeps_accepted(wrows, *adversarial_kind(o, d, case))
     assert pairs > 100
 
 

@@ -13,6 +13,8 @@ rounds twice, so t may differ by ulps and a hit exactly on an edge may
 flip: hit/miss agreement >= 99.9%, same winner >= 99%, t within 1e-5
 relative on >= 99.9% of common hits.  ``any_hit`` contracts the same way:
 blocked flags agree on >= 99.9% of rays (the reference's occlusion gate).
+Both walks' culls change no result: each kernel with the clusters' cull
+boxes gives, bit for bit, what it gives with boxes that drop nothing.
 Whitted frames: within 2 u8 levels on >= 99% of pixels, alive per pass
 within 0.1% of the pixel count.  ``precision_fold``: identical sentinel
 sets and each ray's min t within 1e-3 relative (the repository's t gate,
@@ -198,12 +200,12 @@ def test_walk_kernels_on_stride_lists(x):
     want = ci.closest_hit(*args, *x["lists"], tile_r)
     torch.cuda.synchronize()
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
-    batch = shadow_batch(x)
-    o, d, t_max, *lists = ci.anyhit_schedule(*batch, x["bvh"].clusters)
-    assert lists[0].shape[1] == x["cb"].shape[1]  # the kernel's stride
-    compact = ci.anyhit_schedule(*batch, x["bvh"].clusters, plain=True)[3:]
-    got = ci.any_hit(o, d, t_max, x["bvh"].wrows, *lists, TILE_R)
-    want = ci.any_hit(o, d, t_max, x["bvh"].wrows, *compact, TILE_R)
+    batch = (*shadow_batch(x), x["bvh"].clusters, x["bvh"].wrows,
+             x["bvh"].crows)
+    args = ci.anyhit_schedule(*batch)
+    assert args[5].shape[1] == x["cb"].shape[1]  # the kernel's stride
+    got = ci.any_hit(*args)
+    want = ci.any_hit(*ci.anyhit_schedule(*batch, plain=True))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -424,6 +426,13 @@ def test_wrappers_reject_bad_operands(x):
     with pytest.raises(ValueError):  # cull boxes of another shape
         ci.closest_hit(*args[:4], args[4][:, :7].contiguous(), *args[5:],
                        x["tile_r"])
+    bvh = x["bvh"]
+    shadow = ci.anyhit_schedule(*shadow_batch(x), bvh.clusters, bvh.wrows,
+                                bvh.crows)
+    with pytest.raises(ValueError):  # cull boxes of another shape
+        ci.any_hit(*shadow[:4], shadow[4][:, :7].contiguous(), *shadow[5:])
+    with pytest.raises(ValueError):  # no cull boxes at all
+        ci.any_hit(*shadow[:4], shadow[5], *shadow[5:])
 
 
 def test_frame_matches_plain(cuda):
@@ -464,9 +473,10 @@ def shadow_batch(x, light=(9.0, 7.0, 0.0)):
 
 
 def test_any_hit_kernel_matches_plain(x):
-    o, d, t_max, *lists = ci.anyhit_schedule(*shadow_batch(x),
-                                             x["bvh"].clusters)
-    args = (o, d, t_max, x["bvh"].wrows, *lists, TILE_R)
+    bvh = x["bvh"]
+    args = ci.anyhit_schedule(*shadow_batch(x), bvh.clusters, bvh.wrows,
+                              bvh.crows)
+    o, d, t_max = args[:3]
     before = trace.launches()["any_hit"]
     got = ci.any_hit(*args)
     assert trace.launches()["any_hit"] == before + 1
@@ -482,9 +492,9 @@ def test_any_hit_kernel_matches_plain(x):
 @pytest.mark.parametrize("tile_r", [256, 100])
 def test_any_hit_kernel_tile_r_matches_plain(x, tile_r):
     """One ray per thread in 256-thread CTAs: full and partial tiles."""
-    o, d, t_max, *lists = ci.anyhit_schedule(*shadow_batch(x),
-                                             x["bvh"].clusters, tile_r)
-    args = (o, d, t_max, x["bvh"].wrows, *lists, tile_r)
+    bvh = x["bvh"]
+    args = ci.anyhit_schedule(*shadow_batch(x), bvh.clusters, bvh.wrows,
+                              bvh.crows, tile_r)
     got = ci.any_hit(*args)
     want = ci.any_hit_plain(*args)
     torch.cuda.synchronize()
@@ -494,12 +504,108 @@ def test_any_hit_kernel_tile_r_matches_plain(x, tile_r):
 
 def test_occluded_fused_kernels_match_plain(x):
     o, d, t_max = shadow_batch(x)
-    args = (o, d, x["bvh"].clusters, x["bvh"].wrows, t_max)
+    args = (o, d, x["bvh"].clusters, x["bvh"].wrows, x["bvh"].crows, t_max)
     got = ci.occluded_fused(*args)
     want = ci.occluded_fused(*args, plain=True)
     torch.cuda.synchronize()
     assert got.shape == want.shape == t_max.shape
     assert (got == want).float().mean() >= 0.999
+
+
+@pytest.fixture(scope="module")
+def shadows(cuda):
+    """tests/test_torch_anyhit_cull.py's shadow batches, made on the card:
+    the Whitted frame's primary and bounce batches and a path-traced
+    sample's first bounce batch as the renderer hands them over."""
+    from test_torch_anyhit_cull import shadow_batches
+
+    return shadow_batches(cuda)
+
+
+def differ_at_most(a, b, share=0.001) -> bool:
+    """a and b (per tile) differ on at most ``share`` of their entries, or
+    on one where that is less than one."""
+    return int((a != b).sum()) <= max(1, int(share * a.numel()))
+
+
+@pytest.mark.parametrize("tile_r", [256, 100])
+@pytest.mark.parametrize("name", ["whitted_primary", "pt_bounce"])
+def test_any_hit_cull_and_counting_build(shadows, name, tile_r):
+    """A Whitted primary and a path-traced bounce shadow batch: the kernel
+    with the BVH's cull boxes blocks exactly the rays it blocks with boxes
+    that drop nothing, and so does its counting build (launched as
+    any_hit_exec); per tile 0 <= tested <= open_groups, fewer tested in
+    all; the counts equal the plain twin's on the tiles whose list is one
+    work item and are no fewer on the others, on all but 0.1% of tiles (or
+    one: FMA contraction may flip a knife-edge pair); blocked agrees with
+    the twin's on >= 99.9% of rays."""
+    (o, d, t_max), bvh = shadows[0][name], shadows[1]
+    args = ci.anyhit_schedule(o, d, t_max, bvh.clusters, bvh.wrows,
+                              bvh.crows, tile_r, srows=bvh.srows)
+    nocull = (*args[:4], ci.unbounded_rows(args[4]), *args[5:])
+    counts = args[7]
+    before = trace.launches()
+    got = ci.any_hit(*args)
+    want = ci.any_hit(*nocull)
+    got_c, open_c, tested = ci.any_hit(*args, count_exec=True)
+    plain, p_open, p_tested = ci.any_hit_plain(*args, count_exec=True)
+    torch.cuda.synchronize()
+    made = trace.launches() - before
+    assert made["any_hit"] == 2 and made["any_hit_exec"] == 1
+    assert int(got.sum()) > 20
+    assert torch.equal(got, want) and torch.equal(got, got_c)
+    assert (got == plain).float().mean() >= 0.999
+    assert open_c.dtype == tested.dtype == torch.int32
+    assert open_c.shape == tested.shape == counts.shape
+    assert bool((tested >= 0).all()) and bool((tested <= open_c).all())
+    assert 0 < int(tested.sum()) < int(open_c.sum())
+    one = counts <= ci.ANYHIT_CHUNK
+    assert 0 < int(one.sum()) < counts.numel()
+    for mine, twin in ((open_c, p_open), (tested, p_tested)):
+        assert differ_at_most(mine[one], twin[one])
+        assert differ_at_most(mine < twin, torch.zeros_like(mine, dtype=bool))
+
+
+@pytest.mark.parametrize("end", ["past", "short"])
+def test_any_hit_cull_changes_no_result_adversarial(cuda, end):
+    """The adversarial rays of tests/test_torch_closest_cull.py, each tile
+    listing every cluster, with t_max just past or just short of each ray's
+    least accepted t: the kernel blocks with the cull boxes exactly what it
+    blocks without them."""
+    from test_torch_anyhit_cull import adversarial_walk, t_max_at
+    from test_torch_closest_cull import (accepted_ts, adversarial_clusters,
+                                         adversarial_rays)
+
+    wrows, verts = adversarial_clusters()
+    o, d = adversarial_rays(verts)
+    t = accepted_ts(wrows, o, d).flatten(1).amin(dim=1)
+    args = [a.to(cuda) if torch.is_tensor(a) else a
+            for a in adversarial_walk(wrows, o, d, t_max_at(t, end), 256)]
+    got = ci.any_hit(*args)
+    want = ci.any_hit(*args[:4], ci.unbounded_rows(args[4]), *args[5:])
+    _, open_c, tested = ci.any_hit(*args, count_exec=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if end == "past":
+        assert int(got.sum()) > 1000
+    assert bool((tested <= open_c).all()) and tested.sum() < open_c.sum()
+
+
+@pytest.mark.parametrize("lanes", ["blocked_disarmed", "parked"])
+def test_any_hit_lanes_that_never_run_a_group(cuda, lanes):
+    """tests/test_torch_anyhit_cull.py's lane tile on the card: blocked,
+    disarmed and parked rays never make a warp run a cluster's tests."""
+    from test_torch_anyhit_cull import lane_tile
+
+    args = [a.to(cuda) if torch.is_tensor(a) else a for a in lane_tile()]
+    if lanes == "parked":
+        args[0][:32], args[1][:32], args[2][:32] = 1e30, 1.0, 0.0
+    blocked, open_groups, tested = ci.any_hit(*args, count_exec=True)
+    first = lanes != "parked"
+    torch.cuda.synchronize()
+    assert torch.equal(blocked.cpu(), torch.arange(96) < (32 if first else 0))
+    assert int(open_groups) == (3 if first else 2)
+    assert int(tested) == (1 if first else 0)
 
 
 @pytest.mark.parametrize("block", [32, 8])
@@ -531,8 +637,8 @@ def test_whitted_frame_matches_plain(cuda):
 
     def plain_occ(geo):
         def occluded(o, d, t_max):
-            return ci.occluded_fused(o, d, r.bvh.clusters, r.bvh.wrows, t_max,
-                                     plain=True)
+            return ci.occluded_fused(o, d, r.bvh.clusters, r.bvh.wrows,
+                                     r.bvh.crows, t_max, plain=True)
         return occluded
 
     pos, rot = r.camera.snapshot()
@@ -622,7 +728,8 @@ def test_pathtrace_sample_matches_plain(cuda):
 
     def plain_occ(geo):
         return lambda o, d, t_max: ci.occluded_fused(
-            o, d, bvh.clusters, bvh.wrows, t_max, plain=True, srows=bvh.srows)
+            o, d, bvh.clusters, bvh.wrows, bvh.crows, t_max, plain=True,
+            srows=bvh.srows)
 
     def sample(isect, occf):
         return pathtrace_sample(r.dscene, pos, rot, 5, W, H, max_depth=4,
@@ -852,7 +959,8 @@ def test_occlusion_oracles_agree_with_any_hit(x, small):
 
     o, d, t_max = shadow_batch(x)
     bvh = x["bvh"]
-    blocked = ci.occluded_fused(o, d, bvh.clusters, bvh.wrows, t_max)
+    blocked = ci.occluded_fused(o, d, bvh.clusters, bvh.wrows, bvh.crows,
+                                t_max)
     assert blocked.any() and not blocked.all()
     for got in (traverse_occluded(o, d, small["lbvh"], t_max),
                 occluded_clustered(o, d, bvh.clusters, t_max)):

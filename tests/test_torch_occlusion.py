@@ -69,7 +69,8 @@ def fx():
     return SimpleNamespace(
         jd=jd, jbvh=jbvh, jo=jo, jdirs=jdirs,
         o=torch.from_numpy(np.array(jo)), d=torch.from_numpy(np.array(jdirs)),
-        cs=cs, wrows=ci.woop_rows(cs), cb=ci.cluster_rows(cs))
+        cs=cs, wrows=ci.woop_rows(cs), crows=ci.cull_rows(ci.woop_rows(cs)),
+        cb=ci.cluster_rows(cs))
 
 
 @pytest.fixture(scope="module")
@@ -109,7 +110,8 @@ def test_occluded_fused_matches_jax(fx, j_occ, name):
     """The any-hit schedule + plain walk against JAX brute force and the
     TPU any-hit kernel in interpret mode."""
     o, d, tm = case_inputs(fx, name)
-    got = ci.occluded_fused(o, d, fx.cs, fx.wrows, tm, plain=True).numpy()
+    got = ci.occluded_fused(o, d, fx.cs, fx.wrows, fx.crows, tm,
+                            plain=True).numpy()
     brute, pallas = j_occ[name]
     assert got.shape == brute.shape == (o.shape[0],)
     assert (got == brute).mean() >= AGREE
@@ -123,8 +125,9 @@ def test_occluded_fused_matches_jax(fx, j_occ, name):
 def test_occluded_wrapper_takes_plain_on_cpu(fx):
     tm = torch.full((fx.o.shape[0],), 25.0)
     before = trace.launches()
-    got = ci.occluded_fused(fx.o, fx.d, fx.cs, fx.wrows, tm)
-    want = ci.occluded_fused(fx.o, fx.d, fx.cs, fx.wrows, tm, plain=True)
+    got = ci.occluded_fused(fx.o, fx.d, fx.cs, fx.wrows, fx.crows, tm)
+    want = ci.occluded_fused(fx.o, fx.d, fx.cs, fx.wrows, fx.crows, tm,
+                             plain=True)
     assert torch.equal(got, want)
     assert trace.launches() == before  # plain versions never count
 
@@ -155,7 +158,8 @@ def test_tiles_bound_armed_lanes_only(fx):
     wide = ci.bin_clusters_plain(
         ci.tile_params(o, d, ci.TILE_R, t_cap=t_cap), fx.cb)[1]
     assert (tight <= wide).all() and tight.sum() < wide.sum()
-    got = ci.occluded_fused(o, d, fx.cs, fx.wrows, tm, plain=True).numpy()
+    got = ci.occluded_fused(o, d, fx.cs, fx.wrows, fx.crows, tm,
+                            plain=True).numpy()
     want = np.asarray(jx.occluded_bruteforce(
         jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), fx.jd.geometry.woop,
         jnp.asarray(tm.numpy())))
@@ -188,7 +192,8 @@ def test_disarmed_lanes_stay_unblocked(fx):
     """Lanes with t_max <= t_min are never blocked, even in tiles whose
     other lanes are armed and blocked."""
     tm = torch.where(torch.arange(fx.o.shape[0]) % 2 == 0, 25.0, 0.0)
-    got = ci.occluded_fused(fx.o, fx.d, fx.cs, fx.wrows, tm, plain=True)
+    got = ci.occluded_fused(fx.o, fx.d, fx.cs, fx.wrows, fx.crows, tm,
+                            plain=True)
     assert not got[1::2].any() and got[0::2].sum() > 50
 
 
@@ -215,12 +220,11 @@ def test_plain_walks_count_their_work(fx):
     assert stats["kept_tests"] == int(tested.sum()) * ci.CULL_GROUP * k
 
     tm = torch.where(torch.arange(fx.o.shape[0]) % 2 == 0, 25.0, 0.0)
-    o, d, tm, *lists = ci.anyhit_schedule(fx.o, fx.d, tm, fx.cs)
-    args = (o, d, tm, fx.wrows, *lists, ci.TILE_R)
+    args = ci.anyhit_schedule(fx.o, fx.d, tm, fx.cs, fx.wrows, fx.crows)
     stats = {}
     got = ci.any_hit_plain(*args, stats=stats)
     assert torch.equal(got, ci.any_hit_plain(*args))
-    assert 0 < stats["visits"] <= int(lists[2].sum())
+    assert 0 < stats["visits"] <= int(args[7].sum())
     # at most half the lanes are armed
     assert 0 < stats["tests"] <= stats["visits"] * ci.TILE_R // 2 * k
 
@@ -337,7 +341,7 @@ def test_bin_dispatch_by_cluster_count(fx, monkeypatch):
     dense = ci.bin_clusters(tp, fx.cb)
     hit_dense = ci.intersect_fused(fx.o, fx.d, fx.cs, fx.wrows)
     tm = torch.full((fx.o.shape[0],), 25.0)
-    occ_dense = ci.occluded_fused(fx.o, fx.d, fx.cs, fx.wrows, tm)
+    occ_dense = ci.occluded_fused(fx.o, fx.d, fx.cs, fx.wrows, fx.crows, tm)
     monkeypatch.setattr(ci, "SUPER_MIN_C", 1)
     e_s, o_s = ci.bin_clusters(tp, fx.cb, ci.super_rows(fx.cb))
     assert torch.equal(o_s, dense[1])
@@ -345,5 +349,5 @@ def test_bin_dispatch_by_cluster_count(fx, monkeypatch):
     assert torch.equal(ci.bin_clusters(tp, fx.cb)[1], dense[1])
     hit = ci.intersect_fused(fx.o, fx.d, fx.cs, fx.wrows)
     assert torch.equal(hit.tri, hit_dense.tri) and torch.equal(hit.t, hit_dense.t)
-    assert torch.equal(ci.occluded_fused(fx.o, fx.d, fx.cs, fx.wrows, tm),
-                       occ_dense)
+    assert torch.equal(
+        ci.occluded_fused(fx.o, fx.d, fx.cs, fx.wrows, fx.crows, tm), occ_dense)

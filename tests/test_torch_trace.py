@@ -247,8 +247,8 @@ def test_plain_versions_never_count_a_launch(renderer):
     before = trace.launches()
     ci.intersect_fused(o, d, bvh.clusters, bvh.wrows, 256, srows=bvh.srows,
                        crows=bvh.crows)
-    ci.occluded_fused(o, d, bvh.clusters, bvh.wrows, torch.full((768,), 5.0),
-                      srows=bvh.srows)
+    ci.occluded_fused(o, d, bvh.clusters, bvh.wrows, bvh.crows,
+                      torch.full((768,), 5.0), srows=bvh.srows)
     w, rays = pm.make_inputs(2, "cpu")
     for variant in pm.VARIANTS:
         pm.precision_fold(variant, w, rays)
