@@ -95,7 +95,7 @@ Phases, each of which raises (exit code != 0) on failure:
    pathtrace_shard) with the batches captured where the shard hands them
    over: the binning kernel, closest_hit and any_hit against their plain
    versions, timed beside their bounds, at the 540-row stripe's primary
-   batch (640-ray tiles, its own schedule, under a sample offset) and
+   batch (640-ray tiles, its own schedule, its two samples' rays) and
    primary shadow batch and at the stripe's first path-tracing bounce and
    its shadow batch; then parallel.launch starts a 2 x 2 (tiles x samples) grid of four
    processes, all on cuda:0 and joined over gloo (NCCL refuses two ranks on
@@ -1490,8 +1490,8 @@ def stripe_batches(r, card):
     shard of the Whitted frame and of the path-traced accumulation are
     rendered through ``capturing``, and the binning kernel, closest_hit and
     any_hit are held and timed at the stripe's primary batch (its own tile
-    schedule, under a sample offset) and primary shadow batch and at the
-    path tracer's first bounce and its shadow batch."""
+    schedule, its samples' rays in one wavefront) and primary shadow batch
+    and at the path tracer's first bounce and its shadow batch."""
     width, height = r.width, r.height
     pos, rot = r.camera.snapshot()
     n_tiles, n_samples = MULTI_GRID
@@ -1502,9 +1502,10 @@ def stripe_batches(r, card):
     whitted_shard(r.dscene, pos, rot, width, height, n_tiles, n_samples, t, s,
                   max_depth=WHITTED_DEPTH, spp=MULTI_SPP, intersect_fn=isect,
                   occluder_factory=occf)
-    require(rays[0][2] == tile_r and rays[0][0].shape[0] == rows * width,
+    batch = -(-MULTI_SPP // n_samples) * rows * width
+    require(rays[0][2] == tile_r and rays[0][0].shape[0] == batch,
             f"the stripe's primary batch: {rays[0][0].shape[0]} rays in tiles "
-            f"of {rays[0][2]}, expected {rows * width} in tiles of {tile_r}")
+            f"of {rays[0][2]}, expected {batch} in tiles of {tile_r}")
     held = Held()
     label = f"100k {rows}-row stripe"
     held.rays(f"{label} primary", rays[0], r, card)

@@ -27,6 +27,13 @@ passes over it, each a ``dxrt.pass`` span (utils/trace.py):
    rows (``_compact_sort``).  Reading the live count is the pass's host
    sync.
 
+A wavefront may hold several sub-pixel samples of the same pixels at once
+(``n_samples`` > 1): the primary wavefront is the samples' rows back to
+back, each row carries its sample's index under ``sample``, and each
+compaction keeps every sample's queue of ``capacity`` rows as if the sample
+ran alone, its live rows packed sample after sample.  A pass then pays its
+launches and its host sync once for all the samples.
+
 A shading step is called as ``shade(state, hit, rec, depth, last)`` and
 returns (contrib, branches): the (N, 3) terminal contribution of each row
 (zero for inactive rows) and the rows' continuations as a tuple of one or
@@ -84,7 +91,7 @@ def queue_capacity(n_pix: int, queue_factor: int) -> int:
 
 
 def _compact_sort(cand: dict, capacity: int, scene_lo, scene_hi,
-                  split_at: int | None = None):
+                  split_at: int | None = None, n_samples: int = 1):
     """Compact + coherence-sort candidate rays into a queue of ``capacity``
     rows with one stable key sort and one gather of the live rows.
 
@@ -94,10 +101,22 @@ def _compact_sort(cand: dict, capacity: int, scene_lo, scene_hi,
     half) | direction octant (3b) | origin Morton cell (24b).  Rows past the
     live prefix are parked.  Reading the live count is the pass's host
     sync (``sync.compact_count``), and the parked row's copy another
-    (``sync.park_row``).
+    (``sync.park_row``).  With ``split_at`` the list is two branches of
+    ``split_at`` rows each, and that one read gives the live count of
+    both: the droppable branch's is counted under ``whitted.split``.  The
+    live rows the queue has no room for are counted under
+    ``wavefront.dropped``.
+
+    With ``n_samples`` > 1 the rows are that many samples' (``cand``'s
+    ``sample`` column): the sample's index sits above the key, so each
+    sample's live rows sort together and in the order they would sort
+    alone, each sample keeps at most ``capacity`` of them, and the queue
+    (``n_samples * capacity`` rows, with its ``sample`` column) holds them
+    sample after sample.  The one read gives every sample's counts.
 
     Returns (queue, n_alive, n_dropped), the counts as Python ints and
-    n_alive clamped to ``capacity``.
+    n_alive clamped to ``capacity``; with ``n_samples`` > 1, lists of one
+    count a sample.
     """
     o = cand["origins"]
     d = cand["dirs"]
@@ -118,26 +137,76 @@ def _compact_sort(cand: dict, capacity: int, scene_lo, scene_hi,
     if split_at is not None:
         late = torch.arange(q2, dtype=i32, device=dev) >= split_at
         key = key | (late.to(i32) << 27)
+    if n_samples > 1:
+        return _compact_samples(cand, key, capacity, split_at, n_samples)
     key = torch.where(active, key, 1 << 29)
     order = torch.sort(key, stable=True).indices
 
     trace.count("sync.compact_count")
-    n_active = int(active.sum())
+    if split_at is None:
+        n_active = int(active.sum())
+    else:
+        n_first, n_split = active.view(2, split_at).sum(dim=1).tolist()
+        n_active = n_first + n_split
+        trace.count("whitted.split", n_split)
     n_alive = min(n_active, capacity)
+    trace.count("wavefront.dropped", n_active - n_alive)
+    return (_gather_queue(cand, order[:n_alive], capacity), n_alive,
+            max(n_active - capacity, 0))
+
+
+def _compact_samples(cand: dict, key, capacity: int, split_at, n_samples: int):
+    """``_compact_sort`` over ``n_samples`` samples' rows, from their
+    (int32, active rows') sort key."""
+    active = cand["active"]
+    dev = active.device
+    sample = cand["sample"].long()
+    key = torch.where(active, key.long() | (sample << 28), 1 << 62)
+    key, order = torch.sort(key, stable=True)
+    # The live rows of sample s, branch b (the droppable bit, 1 << 27) start
+    # at the first key >= (2s + b) << 27: one search gives every count.
+    bounds = torch.arange(2 * n_samples + 1, device=dev) << 27
+    counts = torch.searchsorted(key, bounds).diff()
+
+    trace.count("sync.compact_count")
+    counts = counts.tolist()
+    first, split = counts[0::2], counts[1::2]
+    live = [a + b for a, b in zip(first, split)]
+    alive = [min(n, capacity) for n in live]
+    if split_at is not None:
+        trace.count("whitted.split", sum(split))
+    trace.count("wavefront.dropped", sum(live) - sum(alive))
+    take = order[:sum(alive)]
+    if alive != live:  # each sample's first rows, the rest dropped
+        starts = [0]
+        for n in live[:-1]:
+            starts.append(starts[-1] + n)
+        take = torch.cat([order[s:s + n] for s, n in zip(starts, alive)])
+    queue = _gather_queue(cand, take, n_samples * capacity)
+    queue["sample"] = torch.zeros(n_samples * capacity, dtype=torch.int32,
+                                  device=dev)
+    queue["sample"][:take.shape[0]] = cand["sample"][take]
+    return queue, alive, [n - a for n, a in zip(live, alive)]
+
+
+def _gather_queue(cand: dict, take, rows: int) -> dict:
+    """A queue of ``rows`` rows: ``cand``'s rows ``take`` in front, parked
+    rows after them."""
+    dev = cand["origins"].device
+    n_alive = take.shape[0]
     src = torch.cat(
-        [o, d, cand["throughput"],
+        [cand["origins"], cand["dirs"], cand["throughput"],
          cand["pixel"].clamp(max=PIXEL_SENTINEL).to(torch.float32)[:, None]],
         dim=1)
-    packed = trace.upload(_PARK, dev, "park_row").repeat(capacity, 1)
-    packed[:n_alive] = src[order[:n_alive]]
-    queue = {
+    packed = trace.upload(_PARK, dev, "park_row").repeat(rows, 1)
+    packed[:n_alive] = src[take]
+    return {
         "origins": packed[:, 0:3],
         "dirs": packed[:, 3:6],
         "throughput": packed[:, 6:9],
-        "pixel": packed[:, 9].to(i32),
-        "active": torch.arange(capacity, device=dev) < n_alive,
+        "pixel": packed[:, 9].to(torch.int32),
+        "active": torch.arange(rows, device=dev) < n_alive,
     }
-    return queue, n_alive, max(n_active - capacity, 0)
 
 
 def new_framebuffer(n_pix: int, device) -> torch.Tensor:
@@ -201,6 +270,8 @@ def _commit(framebuffer, state, contrib, primary: bool) -> None:
         checks.check(
             lambda: (~state["active"] | ((ids >= 0) & (ids < sink))).all(),
             "wavefront pixel id out of framebuffer range")
+        if contrib.shape[0] > sink:  # the samples' rows, back to back
+            contrib = contrib.view(-1, sink, 3).sum(dim=0)
         framebuffer[:contrib.shape[0]] += contrib
         return
     # The queue invariant, on the ids as the queue holds them (before they
@@ -215,17 +286,19 @@ def _commit(framebuffer, state, contrib, primary: bool) -> None:
 
 def _pass(dscene, state, framebuffer, shade, intersect_fn, depth: int,
           last: bool, capacity: int, n_alive: int | None = None,
-          tile_r=None):
+          tile_r=None, n_samples: int = 1):
     """One pass: over every row of ``state`` on the primary pass
     (``n_alive`` None), over its live prefix ``state[:n_alive]`` on a
     bounce.  ``tile_r`` is the primary pass's ray chunk (the pixel tile).
-    Returns (the next queue of ``capacity`` rows or None after the last
-    pass, its live count, the rows its compaction dropped)."""
+    Returns (the next queue of ``capacity`` rows a sample or None after the
+    last pass, its live count, the rows its compaction dropped), the counts
+    as ``_compact_sort`` gives them."""
     geo = dscene.geometry
     primary = n_alive is None
     if not primary:
         if n_alive == 0:  # an all-parked queue stays one
-            return (None if last else state), 0, 0
+            zero = 0 if n_samples == 1 else [0] * n_samples
+            return (None if last else state), zero, zero
         state = {k: v[:n_alive] for k, v in state.items()}
     hit, rec = closest_hits(geo, state, intersect_fn, tile_r)
     with span("dxrt.shade"):
@@ -233,31 +306,37 @@ def _pass(dscene, state, framebuffer, shade, intersect_fn, depth: int,
     with span("dxrt.commit"):
         _commit(framebuffer, state, contrib, primary)
     if last:  # the continuations are never consumed: no compaction
-        return None, 0, 0
+        zero = 0 if n_samples == 1 else [0] * n_samples
+        return None, zero, zero
     with span("dxrt.compact"):
         cand, split_at = branches[0], None
         if len(branches) == 2:  # the second branch goes after the first
             cand = {k: torch.cat([branches[0][k], branches[1][k]])
                     for k in cand}
             split_at = branches[0]["origins"].shape[0]
+        if n_samples > 1:
+            cand["sample"] = torch.cat([state["sample"]] * len(branches))
         return _compact_sort(cand, capacity, geo.scene_lo, geo.scene_hi,
-                             split_at)
+                             split_at, n_samples)
 
 
 def run_passes(dscene, state, framebuffer, shade, intersect_fn, tile_r,
-               max_depth: int, capacity: int) -> list:
+               max_depth: int, capacity: int, n_samples: int = 1) -> list:
     """``max_depth`` passes from the primary wavefront ``state`` into
     ``framebuffer`` (``new_framebuffer``), shading with ``shade``; the
-    bounce queues hold ``capacity`` rows (``queue_capacity``).  Returns
-    each pass's (alive, dropped): the rows its compaction kept and those
-    the queue had no room for, 0 and 0 for the last pass and for a pass
-    over an empty queue."""
+    bounce queues hold ``capacity`` rows a sample (``queue_capacity``).
+    ``state`` holds ``n_samples`` samples' rows (see the module doc).
+    Returns each pass's (alive, dropped): the rows its compaction kept and
+    those the queue had no room for, 0 and 0 for the last pass and for a
+    pass over an empty queue; with ``n_samples`` > 1, lists of one count a
+    sample."""
     stats, n_alive = [], None
     for depth in range(max_depth):
         with span("dxrt.pass"):
-            state, n_alive, dropped = _pass(
+            state, alive, dropped = _pass(
                 dscene, state, framebuffer, shade, intersect_fn, depth,
                 depth == max_depth - 1, capacity, n_alive=n_alive,
-                tile_r=tile_r if depth == 0 else None)
-        stats.append((n_alive, dropped))
+                tile_r=tile_r if depth == 0 else None, n_samples=n_samples)
+        stats.append((alive, dropped))
+        n_alive = alive if n_samples == 1 else sum(alive)
     return stats

@@ -39,7 +39,7 @@ from ..models.material import MaterialType
 from ..models.scene import DeviceScene
 from ..ops.rays import RGSS_OFFSETS, pick_schedule
 from ..ops.shading import RAY_BIAS, direct_lighting, hit_attributes, reflect, refract_fresnel
-from ..utils import checks
+from ..utils import checks, trace
 from ..utils.trace import span
 from .debug import untile
 from .wavefront import (_default_intersect, _default_occluder, new_framebuffer,
@@ -56,7 +56,10 @@ def _shade_hits(dscene, occluder_fn, state, hit, rec, depth: int, last: bool):
     through ``occluder_fn``, constant hits) and, unless ``last``, their
     specular continuations as two branches: A (mirror bounce or refractive
     transmission), which survives overflow, and B (the refractive surface's
-    Fresnel reflection), which an overflowing queue drops first."""
+    Fresnel reflection), which an overflowing queue drops first.  Counts
+    the rows that entered the pass under ``whitted.rays``; the
+    continuations are made in a ``dxrt.shade.split`` span."""
+    trace.count("whitted.rays", state["pixel"].shape[0])
     geo = dscene.geometry
     active = state["active"]
     hit_mask = active & hit.mask
@@ -103,43 +106,47 @@ def _shade_hits(dscene, occluder_fn, state, hit, rec, depth: int, last: bool):
         return contrib, None
 
     # --- specular continuations --------------------------------------------
-    d = state["dirs"]
-    n = attrs["normal"]
-    refr_dir, refl_dir_o, fres, tir = refract_fresnel(d, n, attrs["ior"])
-    # Offset origins off the surface along the *geometric* normal, on the
-    # side the continuation travels.
-    ng = attrs["n_geom"]
-    side = torch.sign((d * ng).sum(dim=-1, keepdim=True))  # +1 exiting face
+    with span("dxrt.shade.split"):
+        d = state["dirs"]
+        n = attrs["normal"]
+        refr_dir, refl_dir_o, fres, tir = refract_fresnel(d, n, attrs["ior"])
+        # Offset origins off the surface along the *geometric* normal, on
+        # the side the continuation travels.
+        ng = attrs["n_geom"]
+        # +1 on an exiting face
+        side = torch.sign((d * ng).sum(dim=-1, keepdim=True))
 
-    # Branch A (first half — survives overflow): reflective mirror bounce OR
-    # refractive transmission.
-    mirror_dir = reflect(d, n)
-    a_refl = hit_mask & is_reflective
-    a_refr = hit_mask & is_refractive & ~tir
-    cand_a = {
-        "origins": attrs["point"] + torch.where(
-            a_refr[:, None], side * ng * RAY_BIAS, -side * ng * RAY_BIAS),
-        "dirs": torch.where(a_refr[:, None], refr_dir, mirror_dir),
-        "throughput": torch.where(a_refr[:, None], thpt * (1.0 - fres)[:, None],
-                                  thpt * attrs["albedo"]),
-        "pixel": pixel,
-        "active": a_refl | a_refr,
-    }
+        # Branch A (first half — survives overflow): reflective mirror
+        # bounce OR refractive transmission.
+        mirror_dir = reflect(d, n)
+        a_refl = hit_mask & is_reflective
+        a_refr = hit_mask & is_refractive & ~tir
+        cand_a = {
+            "origins": attrs["point"] + torch.where(
+                a_refr[:, None], side * ng * RAY_BIAS, -side * ng * RAY_BIAS),
+            "dirs": torch.where(a_refr[:, None], refr_dir, mirror_dir),
+            "throughput": torch.where(a_refr[:, None],
+                                      thpt * (1.0 - fres)[:, None],
+                                      thpt * attrs["albedo"]),
+            "pixel": pixel,
+            "active": a_refl | a_refr,
+        }
 
-    # Branch B (second half — dropped first on overflow): the refractive
-    # surface's Fresnel reflection (weight 1 on total internal reflection).
-    b_mask = hit_mask & is_refractive
-    cand_b = {
-        "origins": attrs["point"] - side * ng * RAY_BIAS,
-        "dirs": refl_dir_o,
-        "throughput": thpt * fres[:, None],
-        "pixel": pixel,
-        "active": b_mask,
-    }
+        # Branch B (second half — dropped first on overflow): the
+        # refractive surface's Fresnel reflection (weight 1 on total
+        # internal reflection).
+        b_mask = hit_mask & is_refractive
+        cand_b = {
+            "origins": attrs["point"] - side * ng * RAY_BIAS,
+            "dirs": refl_dir_o,
+            "throughput": thpt * fres[:, None],
+            "pixel": pixel,
+            "active": b_mask,
+        }
 
-    for c in (cand_a, cand_b):
-        c["active"] = c["active"] & (c["throughput"].amax(dim=-1)
-                                     > MIN_THROUGHPUT)
+        for c in (cand_a, cand_b):
+            c["active"] = c["active"] & (c["throughput"].amax(dim=-1)
+                                         > MIN_THROUGHPUT)
     return contrib, (cand_a, cand_b)
 
 
@@ -160,8 +167,9 @@ def render_tile(
     offset_weights=None,
 ):
     """Render the full-width row band [row_start, row_start + rows) of a
-    (height x width) frustum (None: the whole frame), one wavefront per
-    sub-pixel offset, accumulated into one framebuffer.  A band may reach
+    (height x width) frustum (None: the whole frame), the sub-pixel
+    offsets' rays in one wavefront (``render/wavefront.py``: each sample
+    keeps a queue of its own), accumulated into one framebuffer.  A band may reach
     below the frustum (``row_start + rows > height``): the multi-device
     path pads its stripes and crops.
 
@@ -197,16 +205,27 @@ def render_tile(
         offset_weights = [1.0] * len(offsets)
 
     shade = functools.partial(_shade_hits, dscene, occluder)
-    stats = []
-    for offset, offset_weight in zip(offsets, offset_weights):
-        with span("dxrt.raygen"):
+    n_samples = len(offsets)
+    with span("dxrt.raygen"):
+        samples = []
+        for offset, offset_weight in zip(offsets, offset_weights):
             throughput = torch.full((n_pix, 3), weight, dtype=torch.float32,
                                     device=dev) * float(offset_weight)
-            state = primary_wavefront(cam_position, cam_rotation, width,
-                                      height, offset, row_start, rows, tile,
-                                      throughput)
-        stats += run_passes(dscene, state, framebuffer, shade, isect, tile_r,
-                            max_depth, capacity)
+            samples.append(primary_wavefront(
+                cam_position, cam_rotation, width, height, offset, row_start,
+                rows, tile, throughput))
+        state = samples[0]
+        if n_samples > 1:  # one wavefront of every sample's rows
+            state = {k: torch.cat([s[k] for s in samples]) for k in state}
+            state["sample"] = torch.arange(
+                n_samples, dtype=torch.int32, device=dev).repeat_interleave(n_pix)
+    passes = run_passes(dscene, state, framebuffer, shade, isect, tile_r,
+                        max_depth, capacity, n_samples)
+    if n_samples == 1:
+        stats = passes
+    else:  # sample-major, as one wavefront a sample would count them
+        stats = [(alive[s], dropped[s]) for s in range(n_samples)
+                 for alive, dropped in passes]
 
     with span("dxrt.commit"):
         image = untile(framebuffer[:n_pix], width, rows, tile)

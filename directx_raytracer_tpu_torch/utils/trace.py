@@ -22,6 +22,9 @@ Span names are ``dxrt.<layer>[.<part>]``, nested on the one host thread:
       dxrt.hit_record                        the per-hit record fetch
       dxrt.shade                             attributes, lighting, shading
         dxrt.shade.draw                      a PT pass's keyed draws
+        dxrt.shade.split                     a Whitted pass's specular
+                                             continuations (refraction,
+                                             Fresnel, the two branches)
         dxrt.occluder (.stage, .bin, .walk   the shadow batch's sort, the
                        > .items)             occluder query, the unsort
       dxrt.compact                           the wavefront compaction
@@ -33,7 +36,9 @@ Span names are ``dxrt.<layer>[.<part>]``, nested on the one host thread:
 inside ``dxrt.occluder.walk`` and only on the kernel path.
 ``dxrt.shade.draw`` (one launch of ``pt_draws``, or its twin) runs only in
 a path-traced pass, first in its shading, and counts in the shading
-layer.  The debug frame has no ``dxrt.pass``.
+layer.  ``dxrt.shade.split`` runs in every Whitted pass but the last,
+last in its shading, and counts in the shading layer too.  The debug
+frame has no ``dxrt.pass``.
 
 Counters.  ``COUNTS`` holds plain integers, always on: ``count(key, n)``
 adds, ``reset()`` clears; a key never counted reads 0.
@@ -56,6 +61,17 @@ adds, ``reset()`` clears; a key never counted reads 0.
   its shading), the frame's pixels and then each bounce's live count, which the
   compaction has already read (no sync of its own).  Over frames x W x H
   it is a sample's rays a pixel (1 primary only, ``max_depth`` at most).
+* ``whitted.rays``: its Whitted twin, the rows entering each Whitted
+  pass's query, the pixels of each sub-pixel offset's wavefront and then
+  each compaction's kept rows.  Over frames x W x H it is a frame's rays
+  a pixel (spp with primary rays only).
+* ``whitted.split``: the branch-B rows (refractive surfaces' Fresnel
+  reflections, the branch an overflowing queue drops first) that a
+  Whitted pass sends live into its compaction.  The compaction's count
+  read returns it beside the live count: no sync of its own.
+* ``wavefront.dropped``: the live rows a compaction had no room for in
+  its queue, in both frame kinds (the frames' stats also return them per
+  pass).
 """
 
 from __future__ import annotations

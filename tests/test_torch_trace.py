@@ -4,8 +4,13 @@ On the CPU: spans are a shared null context without a profiler; under
 torch.profiler a debug frame, a depth-3 Whitted frame and a path-traced
 sample of a small scene open every span, nested as documented, each a
 plain ``cpu_op``; the ``sync.*`` counts of a frame equal its sites; the
-``launch.*`` counts never move for the plain versions.  A renderer with
-``use_kernels=True`` runs the fused query's plain versions here.
+``launch.*`` counts never move for the plain versions; the Whitted and
+path-traced frames' ``whitted.rays``, ``whitted.split`` and
+``wavefront.dropped`` deltas equal their stats, and the compaction counts
+the split and the dropped rows on its one count read; each span maps to a
+layer of the benchmark's idle split (``benchmark/metrics/program_spans.py``).
+A renderer with ``use_kernels=True`` runs the fused query's plain versions
+here.
 
 Marked ``gpu`` (skip without a card): under
 ``torch.cuda.set_sync_debug_mode("warn")`` a frame's sync warnings equal
@@ -15,7 +20,9 @@ with a ``dxrt.`` name.  This file imports no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_trace.py
 """
 
+import sys
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,9 +33,16 @@ from torch.profiler import ProfilerActivity, profile
 from directx_raytracer_tpu_torch import testscenes
 from directx_raytracer_tpu_torch.bvh import cuda_intersect as ci
 from directx_raytracer_tpu_torch.render.pathtrace import PathTracer
+from directx_raytracer_tpu_torch.render import wavefront as wf
 from directx_raytracer_tpu_torch.render.renderer import Renderer
 from directx_raytracer_tpu_torch.tools import precision_micro as pm
 from directx_raytracer_tpu_torch.utils import checks, trace
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+from benchmark.metrics import program_spans  # noqa: E402
 
 W, H = 64, 48
 DEPTH = 3
@@ -49,6 +63,7 @@ PARENTS = {
     "dxrt.hit_record": {"dxrt.frame.debug", "dxrt.pass"},
     "dxrt.shade": {"dxrt.frame.debug", "dxrt.pass"},
     "dxrt.shade.draw": {"dxrt.shade"},
+    "dxrt.shade.split": {"dxrt.shade"},
     "dxrt.occluder": {"dxrt.shade"},
     "dxrt.occluder.stage": {"dxrt.occluder"},
     "dxrt.occluder.bin": {"dxrt.occluder"},
@@ -180,6 +195,13 @@ def test_spans_are_plain_cpu_ops(profiled):
         assert e.time_range.end >= e.time_range.start
 
 
+def test_every_span_maps_to_a_layer_of_the_idle_split():
+    for name in PARENTS:
+        assert program_spans.layer_of(name) in program_spans.SPLIT, name
+    assert program_spans.layer_of("dxrt.shade.split") == "wavefront"
+    assert program_spans.layer_of("dxrt.shade.draw") == "wavefront"
+
+
 def test_whitted_frame_has_one_pass_span_a_pass(renderer):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         stats = whitted_frame(renderer)
@@ -215,6 +237,58 @@ def test_path_traced_sample_reads_no_seed_from_the_device(renderer):
     made, _ = syncs_of(pt_sample, renderer)
     # The sub-pixel jitter is drawn on the render device: no offset copy.
     assert "sync.offset" not in made and made["sync.camera"] == 2
+
+
+def counts_of(fn, *args):
+    before = dict(trace.COUNTS)
+    out = fn(*args)
+    made = {k: trace.COUNTS[k] - before.get(k, 0) for k in
+            ("whitted.rays", "whitted.split", "wavefront.dropped", "pt.rays")}
+    return made, out
+
+
+def test_frames_count_their_rays_split_and_dropped_rows(renderer):
+    """A Whitted frame over a scene without glass: its rays are the pixels
+    and its compactions' kept rows, none split, none dropped; a
+    path-traced sample counts none of the Whitted keys."""
+    made, stats = counts_of(whitted_frame, renderer)
+    assert made["whitted.rays"] == W * H + int(stats["alive"].sum())
+    assert made["whitted.split"] == 0 and made["wavefront.dropped"] == 0
+    assert made["pt.rays"] == 0
+    made, _ = counts_of(pt_sample, renderer)
+    assert made["whitted.rays"] == made["whitted.split"] == 0
+    assert made["wavefront.dropped"] == 0 and made["pt.rays"] >= W * H
+
+
+@pytest.mark.parametrize("capacity", [256, 120, 40])
+def test_compaction_counts_split_and_dropped_rows_on_its_one_read(capacity):
+    """Two 128-row branches, about 60% of each live: the second branch's
+    live rows count under ``whitted.split`` and the rows past ``capacity``
+    under ``wavefront.dropped``, with the one ``sync.compact_count``; a
+    one-branch list (the path tracer's) counts no split."""
+    n, rng = 128, np.random.default_rng(5)
+    cand = {"origins": torch.as_tensor(rng.uniform(-5, 5, (2 * n, 3)), dtype=torch.float32),
+            "dirs": torch.nn.functional.normalize(
+                torch.as_tensor(rng.normal(size=(2 * n, 3)), dtype=torch.float32), dim=1),
+            "throughput": torch.ones((2 * n, 3)),
+            "pixel": torch.arange(2 * n, dtype=torch.int32) % n,
+            "active": torch.as_tensor(rng.random(2 * n) < 0.6)}
+    lo, hi = torch.full((3,), -5.0), torch.full((3,), 5.0)
+    n_active, n_split = int(cand["active"].sum()), int(cand["active"][n:].sum())
+    before = dict(trace.COUNTS)
+    _, alive, dropped = wf._compact_sort(cand, capacity, lo, hi, split_at=n)
+    made = {k: v - before.get(k, 0) for k, v in trace.COUNTS.items()
+            if v != before.get(k, 0)}
+    assert (alive, dropped) == (min(n_active, capacity), max(n_active - capacity, 0))
+    want = {"sync.compact_count": 1, "sync.park_row": 1, "whitted.split": n_split,
+            "wavefront.dropped": dropped}
+    assert made == {k: v for k, v in want.items() if v}
+    one = {k: v[:n] for k, v in cand.items()}
+    before = dict(trace.COUNTS)
+    _, alive, dropped = wf._compact_sort(one, capacity, lo, hi)
+    assert trace.COUNTS["whitted.split"] == before.get("whitted.split", 0)
+    assert trace.COUNTS["wavefront.dropped"] - before.get("wavefront.dropped", 0) == dropped
+    assert alive == min(int(one["active"].sum()), capacity)
 
 
 def test_upload_counts_host_values_only():

@@ -48,6 +48,7 @@ from directx_raytracer_tpu_torch.render import render_whitted
 from directx_raytracer_tpu_torch.render import wavefront as wf
 from directx_raytracer_tpu_torch.render import whitted as pw
 from directx_raytracer_tpu_torch.render.renderer import Renderer
+from directx_raytracer_tpu_torch.utils import trace
 from directx_raytracer_tpu_torch.utils.image import to_u8
 from directx_raytracer_tpu_torch.viewer.app import main as viewer_main
 from test_torch_intersect import device_scene_leaves
@@ -388,6 +389,61 @@ def test_compact_sort_matches_jax(case, capacity):
         assert all(tuple(r) in kept for r in a_rows.tolist())
     if case == "clamp":
         assert capacity < n_a and alive == capacity
+
+
+@pytest.mark.parametrize("capacity", [256, 120, 40])
+def test_compact_samples_equal_a_compaction_each(capacity):
+    """Three samples' candidates in one list (each sample's A rows, then
+    each sample's B rows, as a pass makes them): each sample's queue rows,
+    live and dropped counts are those of its own compaction, the live rows
+    packed sample after sample, and the counts read once."""
+    n, n_samples = 128, 3
+    alone = [candidates(n, seed=5 + s, active_share=0.6) for s in range(n_samples)]
+    cand = {k: np.concatenate([c[k][:n] for c in alone]
+                              + [c[k][n:] for c in alone]) for k in alone[0]}
+    cand["sample"] = np.tile(np.repeat(np.arange(n_samples), n), 2).astype(np.int32)
+    lo, hi = t(np.full(3, -5, np.float32)), t(np.full(3, 5, np.float32))
+    reads = trace.COUNTS["sync.compact_count"]
+    q, alive, drop = wf._compact_sort({k: t(v) for k, v in cand.items()},
+                                      capacity, lo, hi, split_at=n_samples * n,
+                                      n_samples=n_samples)
+    assert trace.COUNTS["sync.compact_count"] == reads + 1
+    start = 0
+    for s, c in enumerate(alone):
+        q1, alive1, drop1 = wf._compact_sort({k: t(v) for k, v in c.items()},
+                                             capacity, lo, hi, split_at=n)
+        assert (alive[s], drop[s]) == (alive1, drop1)
+        for k in q1:
+            np.testing.assert_array_equal(
+                q[k][start:start + alive1].numpy(), q1[k][:alive1].numpy(), err_msg=k)
+        assert (q["sample"][start:start + alive1] == s).all()
+        start += alive1
+    assert q["origins"].shape[0] == n_samples * capacity
+    assert bool(q["active"][:start].all()) and not bool(q["active"][start:].any())
+    assert (q["pixel"][start:] == wf.PIXEL_SENTINEL).all()
+    if capacity == 40:
+        assert all(d > 0 for d in drop)
+
+
+@pytest.mark.parametrize("queue_factor", [None, 1])
+def test_samples_in_one_wavefront_equal_a_wavefront_each(queue_factor):
+    """``render_tile``'s offsets share one wavefront: the image is the
+    offsets' frames rendered alone and summed, and the stats are theirs,
+    sample by sample, with a queue that overflows (factor 1 over a
+    full-screen glass slab) as with one that does not."""
+    scene = glass_slab()
+    d = port_scene(j_build(scene))
+    pos, rot = scene.camera.snapshot()
+    offs = pw.spp_offsets(3)
+    kw = dict(max_depth=4, queue_factor=queue_factor)
+    img, stats = pw.render_tile(d, pos, rot, 16, 16, offs, 1 / 3, **kw)
+    alone = [pw.render_tile(d, pos, rot, 16, 16, [o], 1 / 3, **kw) for o in offs]
+    torch.testing.assert_close(img, sum(i for i, _ in alone), rtol=0, atol=1e-6)
+    for k in ("alive", "dropped"):
+        np.testing.assert_array_equal(
+            stats[k].numpy(), torch.cat([st[k] for _, st in alone]).numpy())
+    assert int(stats["alive"].sum()) > 0
+    assert (int(stats["dropped"].sum()) > 0) == (queue_factor == 1)
 
 
 def test_queue_capacity_matches_jax_rule():
