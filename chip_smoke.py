@@ -13,7 +13,7 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions; no
    CUDA device is a failure — nothing falls back to the CPU;
-2. build the four CUDA kernel sources in csrc/ (one nvcc per source,
+2. build the CUDA kernel sources in csrc/ (one nvcc per source,
    all started together, then one link; seconds and the build log
    printed);
 3. the binning kernel (bin_lists) and closest_hit against their plain
@@ -147,7 +147,19 @@ Phases, each of which raises (exit code != 0) on failure:
    kernel_smoke and golden_tile_gate on the card, and measure at 5 / 2 / 3
    frames, whose line must carry bench.py's keys (but the two the card
    has no counterpart of) with finite positive values and no error, and
-   whose mode-5 median must lie within 2x of phase 5's.
+   whose mode-5 median must lie within 2x of phase 5's;
+15. the wavefront compaction (run on the 100k Renderer after phase 9, with
+   a Renderer of the benchmark's glass scene, benchmark/scenes/
+   bench_scene_glass.py): a Whitted depth-3 frame, a path-traced depth-4
+   sample and a glass depth-5 spp-4 frame, each with counters reset just
+   before and read just after, must launch compact_keys and
+   compact_gather once each a compaction (2, 3 and 4) and copy no parked
+   row from the host; at the candidate lists that the glass frame's and
+   the Whitted frame's first compactions are handed (2 x 8,294,400 rows
+   of 4 samples; 2 x 2,073,600 rows), both kernels must equal their plain
+   chains bit for bit (the queue's strides too), and the whole compaction
+   (queue, live and dropped counts) the compaction through the plain
+   chains; each kernel timed beside its bound and the chain it replaces.
 
 Each kernel's line in the kernels JSON also carries its bound (the least
 time the card could take for the same work: bytes over the memory rate or
@@ -157,22 +169,24 @@ visit (every ray of a visited tile, whatever closest_hit's cull skips),
 for the binning kernel from its slab tests and its sorting
 networks' compare-exchanges, for pt_draws from the 4 bytes read and 16
 written a row, for shadow_keys and shadow_rays from the bytes a point and
-a ray read and write) and library_ms: null, since no single PyTorch
+a ray read and write, for compact_keys and compact_gather from the bytes
+a candidate, a live candidate, a queue row and a kept row read and write) and library_ms: null, since no single PyTorch
 call computes any of these functions.  The lines of bin_clusters (the
 binning kernel's dense mode), bin_clusters_super (its superblock mode),
-closest_hit, any_hit, pt_draws, shadow_keys and shadow_rays also carry
-"batches", one record per batch they
+closest_hit, any_hit, pt_draws, shadow_keys, shadow_rays, compact_keys
+and compact_gather also carry "batches", one record per batch they
 serve (ms, plain_ms, bound_ms, bound_by and the launches on its path; the
 binning records also the layer's ms: the wrapper with its host sync, by
 CUDA events; any_hit's also its counting build's ms, its ms with and
 without the cull, its open and tested groups and cull shares:
 ``exec_ms``, ``cull_ms``, ``nocull_ms``, ``open_groups``, ``tested``,
 ``cull_share``, ``plain_cull_share``); their top-level numbers are
-the first batch's; the shadow kernels' plain_ms is their chain's, and
-their launches are the PT entry point's.  Each walk batch prints its work
+the first batch's; the shadow and compaction kernels' plain_ms is their
+chain's; the shadow kernels' launches are the PT entry point's, the
+compaction kernels' a glass frame's.  Each walk batch prints its work
 items, longest list, visited of binned pairs and (ray, triangle) tests.
-The binning kernel's, pt_draws's and the shadow kernels' ms is their
-device time from the profiler (torch.profiler's CUDA kernel
+The binning kernel's, pt_draws's, the shadow and the compaction kernels'
+ms is their device time from the profiler (torch.profiler's CUDA kernel
 records): CUDA events around one call of a launch this short would time
 the host's enqueue.  Each such window starts with 16 launches that are not
 timed and a pause, because the profiler loses the first records of a window,
@@ -240,6 +254,7 @@ from directx_raytracer_tpu_torch.render.debug import render_debug, untile
 from directx_raytracer_tpu_torch.render import pathtrace as ppt
 from directx_raytracer_tpu_torch.render.pathtrace import PathTracer, pathtrace_tile
 from directx_raytracer_tpu_torch.render.renderer import Renderer
+from directx_raytracer_tpu_torch.render import wavefront as wf
 from directx_raytracer_tpu_torch.render.whitted import render_whitted
 from directx_raytracer_tpu_torch.tools import bench as dxrt_bench
 from directx_raytracer_tpu_torch.tools import (cull_stats, exec_stats,
@@ -249,6 +264,8 @@ from directx_raytracer_tpu_torch.tools import precision_micro as pm
 from directx_raytracer_tpu_torch.utils import checks, trace
 from directx_raytracer_tpu_torch.utils.image import read_png, to_u8, write_png
 from directx_raytracer_tpu_torch.viewer.app import main as viewer_main
+from benchmark import port as bench_port
+from benchmark.scenes import bench_scene_glass
 
 BIG_SCENE = (100_000, 1920, 1080)
 SMALL_SCENE = (3_000, 96, 48)
@@ -263,6 +280,8 @@ PT_DEPTH = 4  # the tools/pt_bench.py workload: 1080p, 100k, depth 4
 PT_SAMPLES = 4
 PT_REPS = 5
 PT_DIRECT_SAMPLES = 8
+GLASS_DEPTH, GLASS_SPP = 5, 4  # the whitted_glass_100k cell's frame
+GLASS_SEED = 2_300_000_001  # the glass scene's seed (benchmark/scenes)
 BENCH_FRAMES = (5, 2, 3)  # measure's mode-5, Whitted and 1M frames
 BENCH_SPREAD = 2.0  # its mode-5 median against phase 5's, either way
 MULTI_GRID = (2, 2)  # tiles x samples: four processes on the one card
@@ -384,6 +403,15 @@ DRAW_ROW_BYTES = 4 + 16
 SHADOW_KEY_BYTES = 12 + 12 + 1 + 4 + 4
 SHADOW_POINT_BYTES = 12 + 12 + 1
 SHADOW_RAY_BYTES = 5 * 4 + 7 * 4
+# Bytes the compaction's kernels move (csrc/compact.cu): compact_keys reads
+# a candidate's active byte and writes its key, and reads a live
+# candidate's origin and direction (and its i32 sample when the list holds
+# several samples); compact_gather writes a queue row's packed row, pixel
+# and active byte (and sample), and reads a kept row's i64 sorted index and
+# its candidate's nine floats and pixel.
+COMPACT_LIVE_BYTES = 12 + 12
+COMPACT_QUEUE_BYTES = 40 + 4 + 1
+COMPACT_KEPT_BYTES = 8 + 40
 
 
 def bound(nbytes: float, f32_ops: float, bf16_ops: float = 0.0):
@@ -1132,6 +1160,147 @@ def shadow_records(shadow_in, card):
                              **{k: batches[0][k] for k in
                                 ("ms", "plain_ms", "bound_ms", "bound_by")})
     return records
+
+
+def captured_compaction(fn):
+    """Run ``fn()`` and return the operands of the first compaction it
+    makes (``render/wavefront.compact``, as ``_pass`` calls it), strides
+    and all: (branches, capacity, lo, hi, sample, n_samples)."""
+    real, seen = wf.compact, []
+
+    def capturing(branches, capacity, lo, hi, sample=None, n_samples=1):
+        if not seen:
+            seen.append((tuple({k: keep(v) for k, v in b.items()}
+                               for b in branches),
+                         capacity, lo, hi, keep(sample), n_samples))
+        return real(branches, capacity, lo, hi, sample, n_samples)
+
+    wf.compact = capturing
+    try:
+        fn()
+    finally:
+        wf.compact = real
+    require(len(seen) == 1, "the frame made no compaction")
+    return seen[0]
+
+
+def plain_compact(*args):
+    """``compact`` through the plain chains (on the card: references)."""
+    fns = wf.compact_keys, wf.compact_gather
+    wf.compact_keys, wf.compact_gather = (wf.compact_keys_plain,
+                                          wf.compact_gather_plain)
+    try:
+        return wf.compact(*args)
+    finally:
+        wf.compact_keys, wf.compact_gather = fns
+
+
+def compaction_path(r, card):
+    """Phase 15 on the debug path's Renderer and a glass Renderer: the
+    compaction's kernels at the glass frame's and a Whitted frame's first
+    candidate lists, and the launches of each frame kind.  Returns the two
+    kernels' records."""
+    glass = bench_port.renderer(bench_scene_glass.build(GLASS_SEED), r.device)
+    lists = [
+        (f"100k 1080p glass pass 0 (spp {GLASS_SPP})", captured_compaction(
+            lambda: glass.render_whitted_frame(GLASS_DEPTH, GLASS_SPP))),
+        ("100k 1080p Whitted pass 0 (spp 1)", captured_compaction(
+            lambda: r.render_whitted_frame(max_depth=WHITTED_DEPTH)))]
+
+    # Each kind of frame launches each kernel once a compaction.
+    pos, rot = r.camera.snapshot()
+    pt = PathTracer(r.dscene, r.width, r.height, max_depth=PT_DEPTH,
+                    intersect_fn=r.intersect_fn,
+                    occluder_factory=r.occluder_factory, seed=4)
+    launches = {}
+    for kind, frame, want in (
+            ("Whitted", lambda: r.render_whitted_frame(max_depth=WHITTED_DEPTH),
+             WHITTED_DEPTH - 1),
+            ("PT", lambda: pt.step(pos, rot), PT_DEPTH - 1),
+            ("glass", lambda: glass.render_whitted_frame(GLASS_DEPTH, GLASS_SPP),
+             GLASS_DEPTH - 1)):
+        trace.reset()
+        frame()
+        torch.cuda.synchronize()
+        made = trace.launches()
+        print(f"compaction: a {kind} frame launched compact_keys "
+              f"{made['compact_keys']} and compact_gather "
+              f"{made['compact_gather']} times, syncs {trace.syncs()}")
+        require(made["compact_keys"] == made["compact_gather"] == want,
+                f"a {kind} frame launched compact_keys {made['compact_keys']} "
+                f"and compact_gather {made['compact_gather']} times, expected "
+                f"{want} each")
+        require(trace.COUNTS["sync.park_row"] == 0,
+                "a compaction copied its parked row from the host")
+        launches[kind] = want
+    del pt
+
+    records = {"compact_keys": [], "compact_gather": []}
+    for label, (branches, capacity, lo, hi, sample, n_samples) in lists:
+        n = branches[0]["origins"].shape[0]
+        rows = n * len(branches)
+        key = wf.compact_keys(branches, sample, n_samples, lo, hi)
+        want = wf.compact_keys_plain(branches, sample, n_samples, lo, hi)
+        require(bits_equal(key, want),
+                f"compact_keys differs from its plain chain at the {label}")
+        key, order = torch.sort(key, stable=True)
+        step = 1 << 27
+        bounds = torch.searchsorted(key, torch.arange(
+            0, (2 * n_samples + 1) * step, step, dtype=key.dtype,
+            device=key.device))
+        got = wf.compact_gather(branches, order, bounds, capacity, n_samples)
+        want = wf.compact_gather_plain(branches, order, bounds, capacity,
+                                       n_samples)
+        require(list(got) == list(want)
+                and all(got[k].stride() == want[k].stride()
+                        and bits_equal(got[k], want[k]) for k in want),
+                f"compact_gather differs from its plain chain at the {label}")
+        q, alive, dropped = wf.compact(branches, capacity, lo, hi, sample,
+                                       n_samples)
+        qp, alive_p, dropped_p = plain_compact(branches, capacity, lo, hi,
+                                               sample, n_samples)
+        require((alive, dropped) == (alive_p, dropped_p)
+                and all(bits_equal(q[k], qp[k]) for k in qp),
+                f"the compaction's queue or counts differ from the plain "
+                f"chains' at the {label}")
+        kept = int(got["active"].sum())
+        live = int((key < n_samples << 28).sum())
+        wide = key.element_size()
+        extra = 4 if sample is not None else 0
+        for name, kernel, plain, nbytes_ in (
+                ("compact_keys",
+                 lambda: wf.compact_keys(branches, sample, n_samples, lo, hi),
+                 lambda: wf.compact_keys_plain(branches, sample, n_samples,
+                                               lo, hi),
+                 rows * (1 + wide) + live * (COMPACT_LIVE_BYTES + extra)),
+                ("compact_gather",
+                 lambda: wf.compact_gather(branches, order, bounds, capacity,
+                                           n_samples),
+                 lambda: wf.compact_gather_plain(branches, order, bounds,
+                                                 capacity, n_samples),
+                 n_samples * capacity * (COMPACT_QUEUE_BYTES + extra)
+                 + kept * COMPACT_KEPT_BYTES)):
+            bound_ms, bound_by = bound(nbytes_, 0.0)
+            rec = dict(batch=label, rows=rows, live=live,
+                       queue_rows=n_samples * capacity, kept=kept,
+                       key_bytes=wide, launches=launches["glass"],
+                       ms=device_ms(kernel, f"{name}_kernel"),
+                       plain_ms=time_ms(plain, PLAIN_REPS),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            print(f"{name} at the {label} ({rows} candidates, {live} live, "
+                  f"{n_samples * capacity} queue rows, {kept} kept, alive "
+                  f"{alive}, dropped {dropped}, i{8 * wide} keys): equal to "
+                  f"its plain chain bit for bit; kernel {rec['ms']:.4f} ms "
+                  f"(device time, profiler), the chain it replaces on the "
+                  f"card {rec['plain_ms']:.4f} ms (CUDA events), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
+            records[name].append(rec)
+    del glass, lists
+    torch.cuda.empty_cache()
+    return {name: dict(max_abs_err=0.0, library_ms=None, batches=batches,
+                       **{k: batches[0][k] for k in
+                          ("ms", "plain_ms", "bound_ms", "bound_by")})
+            for name, batches in records.items()}
 
 
 def pt_path(r, card):
@@ -2219,6 +2388,7 @@ def main(argv=()) -> int:
     pt_held, pt_launches, records["pt_draws"], shadow = pt_path(r, card)
     pt_held.into(records)
     records.update(shadow)
+    records.update(compaction_path(r, card))
     multi_path(r, card).into(records)
     checks_path(r, card)
     oracles_path(r, card)
@@ -2240,6 +2410,8 @@ def main(argv=()) -> int:
     launches["any_hit"] = whitted_launches["any_hit"]
     for name in ("pt_draws", "shadow_keys", "shadow_rays"):
         launches[name] = pt_launches[name]
+    for name in ("compact_keys", "compact_gather"):  # a glass frame's
+        launches[name] = records[name]["batches"][0]["launches"]
     launches["bin_clusters_super"] = huge_launches["bin_clusters_super"]
     launches["closest_hit_exec"] = records["closest_hit_exec"].pop("launches")
     # The binning kernel's lines carry their first batch's numbers on top.
@@ -2267,6 +2439,10 @@ def main(argv=()) -> int:
                                "directx_raytracer_tpu/ops/shading.py:140"),
                "shadow_rays": ("csrc/shadow_batch.cu",
                                "directx_raytracer_tpu/ops/shading.py:244"),
+               "compact_keys": ("csrc/compact.cu",
+                                "directx_raytracer_tpu/render/whitted.py:79"),
+               "compact_gather": ("csrc/compact.cu",
+                                  "directx_raytracer_tpu/render/whitted.py:79"),
                "precision_micro": ("csrc/precision_micro.cu",
                                    "tools/precision_micro.py:32")}
     kernels = []

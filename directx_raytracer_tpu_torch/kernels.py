@@ -2,13 +2,14 @@
 launches.
 
 The sources in ``csrc/`` (the binning kernel, ``closest_hit``, ``any_hit``,
-the precision micro's fold, the path tracer's keyed draws and the shadow
-batch's keys and rays) are compiled with nvcc on first use, one nvcc per
-source in parallel, into one shared library in ``_build/`` next to this
-module, named by a hash of the flags and the sources, and bound with
-ctypes.  The wrappers that own each kernel's shapes and its plain torch
-twin live with their callers (``bvh/cuda_intersect.py``, ``ops/draws.py``,
-``ops/shading.py``, ``tools/precision_micro.py``); they validate their
+the precision micro's fold, the path tracer's keyed draws, the shadow
+batch's keys and rays, and the wavefront compaction's keys and gather) are
+compiled with nvcc on first use, one nvcc per source in parallel, into one
+shared library in ``_build/`` next to this module, named by a hash of the
+flags and the sources, and bound with ctypes.  The wrappers that own each
+kernel's shapes and its plain torch twin live with their callers
+(``bvh/cuda_intersect.py``, ``ops/draws.py``, ``ops/shading.py``,
+``render/wavefront.py``, ``tools/precision_micro.py``); they validate their
 operands with ``check_tensor`` and launch through ``launch``, which counts
 each launch in ``utils.trace.COUNTS`` under ``launch.<kernel>``.  A CPU
 tensor never reaches the library: the wrappers take their twins for it.
@@ -35,7 +36,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("bin_clusters.cu", "closest_hit.cu", "any_hit.cu",
-           "precision_micro.cu", "pt_draws.cu", "shadow_batch.cu")
+           "precision_micro.cu", "pt_draws.cu", "shadow_batch.cu", "compact.cu")
 HEADERS = ("walk.cuh",)  # included by closest_hit.cu and any_hit.cu
 # -Xptxas -v reports each kernel's registers, shared memory and spills into
 # the build log.  No --use_fast_math: the kernels need IEEE divides and
@@ -121,6 +122,12 @@ def _lib() -> ctypes.CDLL:
     lib.dxrt_shadow_rays.argtypes = ([p, i, p, i] + [p] * 6
                                      + [i, i, i, f, f] + [p] * 4)
     lib.dxrt_shadow_rays.restype = i
+    lib.dxrt_compact_keys.argtypes = ([p, i, p, i, p] * 2 + [i, i] + [p] * 3
+                                      + [i, i, p, p])
+    lib.dxrt_compact_keys.restype = i
+    lib.dxrt_compact_gather.argtypes = ([p, i, p, i, p, i, p] * 2 + [i, p, p, i, i]
+                                        + [p] * 5)
+    lib.dxrt_compact_gather.restype = i
     lib.dxrt_error_string.argtypes = [i]
     lib.dxrt_error_string.restype = ctypes.c_char_p
     return lib

@@ -151,15 +151,24 @@ def hit_attributes(dscene: DeviceScene, origins, dirs, hit, rec):
     }
 
 
-def _morton_key_points(p, lo, hi, armed):
-    """30-bit Morton cell of each point (int32); disarmed rays sort last."""
+def morton_key(p, lo, hi, bits: int):
+    """The Morton key of each point of ``p`` (N, 3) in the box (lo, hi) as
+    torch chains, (N,) int32: each axis's cell ((p - lo) / max(hi - lo,
+    1e-12) * 2**bits) clamped to [0, 2**bits - 1] and truncated, its bit b
+    at bit 3b (x), 3b + 1 (y) and 3b + 2 (z)."""
     ext = (hi - lo).clamp(min=1e-12)
-    cell = ((p - lo) / ext * 1024.0).clamp(0.0, 1023.0).to(torch.int32)
+    side = float(1 << bits)
+    cell = ((p - lo) / ext * side).clamp(0.0, side - 1.0).to(torch.int32)
     key = torch.zeros((p.shape[0],), dtype=torch.int32, device=p.device)
-    for bit in range(10):
+    for bit in range(bits):
         for ax in range(3):
             key = key | (((cell[:, ax] >> bit) & 1) << (3 * bit + ax))
-    return torch.where(armed, key, 2**31 - 1)
+    return key
+
+
+def _morton_key_points(p, lo, hi, armed):
+    """30-bit Morton cell of each point (int32); disarmed rays sort last."""
+    return torch.where(armed, morton_key(p, lo, hi, 10), 2**31 - 1)
 
 
 # ---------------------------------------------------------------------------

@@ -23,9 +23,11 @@ passes over it, each a ``dxrt.pass`` span (utils/trace.py):
    the primary pass (its rays are in framebuffer order), one scatter-add
    by pixel id after it;
 5. ``dxrt.compact``, unless it is the last pass: the continuations into
-   the next queue, with one stable key sort and one gather of the live
-   rows (``_compact_sort``).  Reading the live count is the pass's host
-   sync.
+   the next queue (``compact``): the sort keys in one launch
+   (``compact_keys``), one stable key sort, the queue in one launch
+   (``compact_gather``), both kernels of ``csrc/compact.cu`` with plain
+   twins that CPU tensors take.  Reading the live counts is the pass's
+   host sync.
 
 A wavefront may hold several sub-pixel samples of the same pixels at once
 (``n_samples`` > 1): the primary wavefront is the samples' rows back to
@@ -51,8 +53,10 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import check_tensor, launch
 from ..ops.intersect import hit_record, intersect_bruteforce, occluded_bruteforce
 from ..ops.rays import generate_rays, generate_rays_tiled
+from ..ops.shading import morton_key
 from ..utils import checks, trace
 from ..utils.trace import span
 from .debug import isect_kwargs
@@ -90,103 +94,61 @@ def queue_capacity(n_pix: int, queue_factor: int) -> int:
     return -(-q // chunk) * chunk
 
 
-def _compact_sort(cand: dict, capacity: int, scene_lo, scene_hi,
-                  split_at: int | None = None, n_samples: int = 1):
-    """Compact + coherence-sort candidate rays into a queue of ``capacity``
-    rows with one stable key sort and one gather of the live rows.
+def key_dtype(n_samples: int) -> torch.dtype:
+    """The compaction's sort key: i32 where the inactive rows' key
+    ``n_samples << 28``, above every live key, fits (``n_samples`` <= 7),
+    else i64.  Both give the stable sort the same permutation."""
+    return torch.int32 if n_samples << 28 <= 2**31 - 1 else torch.int64
 
-    Sort key (int32), most- to least-significant: inactive (parked last) |
-    droppable branch (candidate indices >= ``split_at``, the
-    Fresnel-reflection half — overflow drops it before the transmission
-    half) | direction octant (3b) | origin Morton cell (24b).  Rows past the
-    live prefix are parked.  Reading the live count is the pass's host
-    sync (``sync.compact_count``), and the parked row's copy another
-    (``sync.park_row``).  With ``split_at`` the list is two branches of
-    ``split_at`` rows each, and that one read gives the live count of
-    both: the droppable branch's is counted under ``whitted.split``.  The
-    live rows the queue has no room for are counted under
-    ``wavefront.dropped``.
 
-    With ``n_samples`` > 1 the rows are that many samples' (``cand``'s
-    ``sample`` column): the sample's index sits above the key, so each
-    sample's live rows sort together and in the order they would sort
-    alone, each sample keeps at most ``capacity`` of them, and the queue
-    (``n_samples * capacity`` rows, with its ``sample`` column) holds them
-    sample after sample.  The one read gives every sample's counts.
+def _column(branches, name: str):
+    """Column ``name`` of the candidate list: the branches' rows, A then B."""
+    if len(branches) == 1:
+        return branches[0][name]
+    return torch.cat([b[name] for b in branches])
 
-    Returns (queue, n_alive, n_dropped), the counts as Python ints and
-    n_alive clamped to ``capacity``; with ``n_samples`` > 1, lists of one
-    count a sample.
-    """
-    o = cand["origins"]
-    d = cand["dirs"]
-    q2 = o.shape[0]
-    active = cand["active"]
-    dev = o.device
-    i32 = torch.int32
 
-    ext = (scene_hi - scene_lo).clamp(min=1e-12)
-    cell = ((o - scene_lo) / ext * 256.0).clamp(0.0, 255.0).to(i32)
-    morton = torch.zeros((q2,), dtype=i32, device=dev)
-    for bit in range(8):
-        for ax in range(3):
-            morton = morton | (((cell[:, ax] >> bit) & 1) << (3 * bit + ax))
+def compact_keys_plain(branches, sample, n_samples: int, lo, hi):
+    """The sort key of each candidate row of ``branches`` (one or two dicts
+    of N rows: A, then B) as torch chains, ``key_dtype(n_samples)``; most-
+    to least-significant: the row's sample (``sample[row mod N]``, None
+    for one sample) | B | direction octant (3b) | origin Morton cell in
+    the box (lo, hi) (24b); ``n_samples << 28`` for an inactive row."""
+    o, d = _column(branches, "origins"), _column(branches, "dirs")
+    active = _column(branches, "active")
+    q2, dev, i32 = o.shape[0], o.device, torch.int32
     octant = (((d[:, 0] > 0).to(i32) << 2) | ((d[:, 1] > 0).to(i32) << 1)
               | (d[:, 2] > 0).to(i32))
-    key = (octant << 24) | morton
-    if split_at is not None:
-        late = torch.arange(q2, dtype=i32, device=dev) >= split_at
-        key = key | (late.to(i32) << 27)
+    key = ((octant << 24) | morton_key(o, lo, hi, 8)).to(key_dtype(n_samples))
+    if len(branches) == 2:
+        late = torch.arange(q2, device=dev) >= branches[0]["origins"].shape[0]
+        key = key | (late.to(key.dtype) << 27)
+    if sample is not None:
+        key = key | (torch.cat([sample] * len(branches)).to(key.dtype) << 28)
+    return torch.where(active, key, n_samples << 28)
+
+
+def compact_gather_plain(branches, order, bounds, capacity: int,
+                         n_samples: int) -> dict:
+    """The queue of ``n_samples * capacity`` rows as torch chains: from the
+    stable sort's ``order`` and ``bounds`` (``compact``), each sample's
+    first ``capacity`` live rows, sample after sample, then parked rows;
+    with ``n_samples`` > 1 a ``sample`` column (0 on parked rows)."""
+    b = bounds.tolist()
+    kept = [min(b[2 * s + 2] - b[2 * s], capacity) for s in range(n_samples)]
+    take = torch.cat([order[b[2 * s]:b[2 * s] + n]
+                      for s, n in enumerate(kept)])
+    cand = {k: _column(branches, k)
+            for k in ("origins", "dirs", "throughput", "pixel")}
+    rows = n_samples * capacity
+    queue = _gather_queue(cand, take, rows)
     if n_samples > 1:
-        return _compact_samples(cand, key, capacity, split_at, n_samples)
-    key = torch.where(active, key, 1 << 29)
-    order = torch.sort(key, stable=True).indices
-
-    trace.count("sync.compact_count")
-    if split_at is None:
-        n_active = int(active.sum())
-    else:
-        n_first, n_split = active.view(2, split_at).sum(dim=1).tolist()
-        n_active = n_first + n_split
-        trace.count("whitted.split", n_split)
-    n_alive = min(n_active, capacity)
-    trace.count("wavefront.dropped", n_active - n_alive)
-    return (_gather_queue(cand, order[:n_alive], capacity), n_alive,
-            max(n_active - capacity, 0))
-
-
-def _compact_samples(cand: dict, key, capacity: int, split_at, n_samples: int):
-    """``_compact_sort`` over ``n_samples`` samples' rows, from their
-    (int32, active rows') sort key."""
-    active = cand["active"]
-    dev = active.device
-    sample = cand["sample"].long()
-    key = torch.where(active, key.long() | (sample << 28), 1 << 62)
-    key, order = torch.sort(key, stable=True)
-    # The live rows of sample s, branch b (the droppable bit, 1 << 27) start
-    # at the first key >= (2s + b) << 27: one search gives every count.
-    bounds = torch.arange(2 * n_samples + 1, device=dev) << 27
-    counts = torch.searchsorted(key, bounds).diff()
-
-    trace.count("sync.compact_count")
-    counts = counts.tolist()
-    first, split = counts[0::2], counts[1::2]
-    live = [a + b for a, b in zip(first, split)]
-    alive = [min(n, capacity) for n in live]
-    if split_at is not None:
-        trace.count("whitted.split", sum(split))
-    trace.count("wavefront.dropped", sum(live) - sum(alive))
-    take = order[:sum(alive)]
-    if alive != live:  # each sample's first rows, the rest dropped
-        starts = [0]
-        for n in live[:-1]:
-            starts.append(starts[-1] + n)
-        take = torch.cat([order[s:s + n] for s, n in zip(starts, alive)])
-    queue = _gather_queue(cand, take, n_samples * capacity)
-    queue["sample"] = torch.zeros(n_samples * capacity, dtype=torch.int32,
-                                  device=dev)
-    queue["sample"][:take.shape[0]] = cand["sample"][take]
-    return queue, alive, [n - a for n, a in zip(live, alive)]
+        dev = take.device
+        queue["sample"] = torch.zeros(rows, dtype=torch.int32, device=dev)
+        queue["sample"][:take.shape[0]] = torch.repeat_interleave(
+            torch.arange(n_samples, dtype=torch.int32, device=dev),
+            torch.tensor(kept, device=dev))
+    return queue
 
 
 def _gather_queue(cand: dict, take, rows: int) -> dict:
@@ -198,7 +160,7 @@ def _gather_queue(cand: dict, take, rows: int) -> dict:
         [cand["origins"], cand["dirs"], cand["throughput"],
          cand["pixel"].clamp(max=PIXEL_SENTINEL).to(torch.float32)[:, None]],
         dim=1)
-    packed = trace.upload(_PARK, dev, "park_row").repeat(rows, 1)
+    packed = torch.tensor(_PARK, dtype=torch.float32, device=dev).repeat(rows, 1)
     packed[:n_alive] = src[take]
     return {
         "origins": packed[:, 0:3],
@@ -207,6 +169,162 @@ def _gather_queue(cand: dict, take, rows: int) -> dict:
         "pixel": packed[:, 9].to(torch.int32),
         "active": torch.arange(rows, device=dev) < n_alive,
     }
+
+
+def _operand(name: str, x, dtype, shape, device):
+    """``x`` as a kernel reads it: ``dtype`` and ``shape`` on ``device``
+    (else raise), its last axis adjacent (copied when it is not)."""
+    if x.dtype != dtype or x.device != device or tuple(x.shape) != shape:
+        raise ValueError(f"{name}: {x.dtype} {tuple(x.shape)} on {x.device}, "
+                         f"expected {dtype} {shape} on {device}")
+    return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def _branch_operands(branches, names, device) -> tuple[list, list]:
+    """Each branch's columns ``names`` as the kernels read them (see
+    ``csrc/compact.cu``): a pointer and a row stride for a 3-wide f32
+    column, a pointer for pixel and active; None and 0 for an absent
+    branch B.  Returns (the launch arguments, the tensors they point into,
+    which the caller holds until the launch so that no allocation before
+    it takes their memory)."""
+    n = branches[0]["origins"].shape[0]
+    args, held = [], []
+    for b in (*branches, None)[:2]:
+        for name in names:
+            if name in ("pixel", "active"):
+                if b is None:
+                    args.append(None)
+                    continue
+                dtype = torch.int32 if name == "pixel" else torch.bool
+                x = _operand(name, b[name], dtype, (n,), device)
+                args.append(x.data_ptr())
+            else:
+                if b is None:
+                    args += [None, 0]
+                    continue
+                x = _operand(name, b[name], torch.float32, (n, 3), device)
+                args += [x.data_ptr(), x.stride(0)]
+            held.append(x)
+    return args, held
+
+
+def compact_keys(branches, sample, n_samples: int, lo, hi):
+    """``compact_keys_plain``'s keys: for CUDA tensors one launch of
+    ``csrc/compact.cu``'s key kernel, counted as ``launch.compact_keys``;
+    for CPU tensors the plain chains."""
+    device = branches[0]["origins"].device
+    if device.type == "cpu":
+        return compact_keys_plain(branches, sample, n_samples, lo, hi)
+    n = branches[0]["origins"].shape[0]
+    args, held = _branch_operands(branches, ("origins", "dirs", "active"),
+                                  device)
+    check_tensor("lo", lo, torch.float32, (3,), device)
+    check_tensor("hi", hi, torch.float32, (3,), device)
+    if sample is not None:
+        sample = _operand("sample", sample, torch.int32, (n,), device)
+    key = torch.empty((len(branches) * n,), dtype=key_dtype(n_samples),
+                      device=device)
+    if n == 0:
+        return key
+    launch("compact_keys", "dxrt_compact_keys", device, *args, n,
+           len(branches), None if sample is None else sample.data_ptr(),
+           lo.data_ptr(), hi.data_ptr(), n_samples,
+           int(key.dtype == torch.int64), key.data_ptr())
+    return key
+
+
+def compact_gather(branches, order, bounds, capacity: int,
+                   n_samples: int) -> dict:
+    """``compact_gather_plain``'s queue: for CUDA tensors one launch of
+    ``csrc/compact.cu``'s gather kernel, counted as
+    ``launch.compact_gather``, which reads the counts in ``bounds`` on the
+    card; for CPU tensors the plain chains."""
+    device = branches[0]["origins"].device
+    if device.type == "cpu":
+        return compact_gather_plain(branches, order, bounds, capacity,
+                                    n_samples)
+    n = branches[0]["origins"].shape[0]
+    args, held = _branch_operands(
+        branches, ("origins", "dirs", "throughput", "pixel"), device)
+    check_tensor("order", order, torch.int64, (len(branches) * n,), device)
+    check_tensor("bounds", bounds, torch.int64, (2 * n_samples + 1,), device)
+    rows = n_samples * capacity
+    packed = torch.empty((rows, 10), dtype=torch.float32, device=device)
+    pixel = torch.empty((rows,), dtype=torch.int32, device=device)
+    active = torch.empty((rows,), dtype=torch.bool, device=device)
+    sample = (torch.empty((rows,), dtype=torch.int32, device=device)
+              if n_samples > 1 else None)
+    launch("compact_gather", "dxrt_compact_gather", device, *args, n,
+           order.data_ptr(), bounds.data_ptr(), n_samples, capacity,
+           packed.data_ptr(), pixel.data_ptr(), active.data_ptr(),
+           None if sample is None else sample.data_ptr())
+    queue = {"origins": packed[:, 0:3], "dirs": packed[:, 3:6],
+             "throughput": packed[:, 6:9], "pixel": pixel, "active": active}
+    if sample is not None:
+        queue["sample"] = sample
+    return queue
+
+
+def compact(branches, capacity: int, scene_lo, scene_hi, sample=None,
+            n_samples: int = 1):
+    """Compact + coherence-sort the candidate rows of ``branches`` (one or
+    two dicts of N rows: A, then B, the Fresnel-reflection half that an
+    overflowing queue drops first) into a queue of ``capacity`` rows a
+    sample, with one key launch (``compact_keys``), one stable key sort
+    and one gather launch (``compact_gather``).
+
+    Sort key, most- to least-significant: inactive (parked last) | sample
+    | branch B | direction octant (3b) | origin Morton cell (24b).  With
+    ``n_samples`` > 1 the rows are that many samples' (``sample``, N rows:
+    a row's sample, the same in both branches), so each sample's live rows
+    sort together and in the order they would sort alone, each sample keeps
+    at most ``capacity`` of them, and the queue (``n_samples * capacity``
+    rows, with its ``sample`` column) holds them sample after sample.  Rows
+    past the live ones are parked.  One search of the sorted keys gives
+    every (sample, branch)'s live count, and reading it is the compaction's
+    one host sync (``sync.compact_count``); the gather reads the counts on
+    the card.  Branch B's live rows count under ``whitted.split``, the live
+    rows the queue has no room for under ``wavefront.dropped``.
+
+    Returns (queue, n_alive, n_dropped), the counts as Python ints and
+    n_alive clamped to ``capacity``; with ``n_samples`` > 1, lists of one
+    count a sample.
+    """
+    key = compact_keys(branches, sample, n_samples, scene_lo, scene_hi)
+    key, order = torch.sort(key, stable=True)
+    # The live rows of sample s, branch b (the droppable bit, 1 << 27) start
+    # at the first key >= (2s + b) << 27.
+    step = 1 << 27
+    bounds = torch.searchsorted(key, torch.arange(
+        0, (2 * n_samples + 1) * step, step, dtype=key.dtype, device=key.device))
+    trace.count("sync.compact_count")
+    b = bounds.tolist()
+    queue = compact_gather(branches, order, bounds, capacity, n_samples)
+    live = [b[2 * s + 2] - b[2 * s] for s in range(n_samples)]
+    alive = [min(n, capacity) for n in live]
+    if len(branches) == 2:
+        trace.count("whitted.split", sum(b[2 * s + 2] - b[2 * s + 1]
+                                         for s in range(n_samples)))
+    trace.count("wavefront.dropped", sum(live) - sum(alive))
+    dropped = [n - a for n, a in zip(live, alive)]
+    if n_samples == 1:
+        return queue, alive[0], dropped[0]
+    return queue, alive, dropped
+
+
+def _compact_sort(cand: dict, capacity: int, scene_lo, scene_hi,
+                  split_at: int | None = None, n_samples: int = 1):
+    """``compact`` over one candidate list, the JAX package's form: with
+    ``split_at`` its rows are two branches of ``split_at`` rows each (A,
+    then B), and with ``n_samples`` > 1 its ``sample`` column holds each
+    row's sample."""
+    if split_at is None:
+        branches = (cand,)
+    else:
+        branches = ({k: v[:split_at] for k, v in cand.items()},
+                    {k: v[split_at:] for k, v in cand.items()})
+    sample = cand["sample"][:split_at] if n_samples > 1 else None
+    return compact(branches, capacity, scene_lo, scene_hi, sample, n_samples)
 
 
 def new_framebuffer(n_pix: int, device) -> torch.Tensor:
@@ -292,7 +410,7 @@ def _pass(dscene, state, framebuffer, shade, intersect_fn, depth: int,
     bounce.  ``tile_r`` is the primary pass's ray chunk (the pixel tile).
     Returns (the next queue of ``capacity`` rows a sample or None after the
     last pass, its live count, the rows its compaction dropped), the counts
-    as ``_compact_sort`` gives them."""
+    as ``compact`` gives them."""
     geo = dscene.geometry
     primary = n_alive is None
     if not primary:
@@ -309,15 +427,8 @@ def _pass(dscene, state, framebuffer, shade, intersect_fn, depth: int,
         zero = 0 if n_samples == 1 else [0] * n_samples
         return None, zero, zero
     with span("dxrt.compact"):
-        cand, split_at = branches[0], None
-        if len(branches) == 2:  # the second branch goes after the first
-            cand = {k: torch.cat([branches[0][k], branches[1][k]])
-                    for k in cand}
-            split_at = branches[0]["origins"].shape[0]
-        if n_samples > 1:
-            cand["sample"] = torch.cat([state["sample"]] * len(branches))
-        return _compact_sort(cand, capacity, geo.scene_lo, geo.scene_hi,
-                             split_at, n_samples)
+        return compact(branches, capacity, geo.scene_lo, geo.scene_hi,
+                       state["sample"] if n_samples > 1 else None, n_samples)
 
 
 def run_passes(dscene, state, framebuffer, shade, intersect_fn, tile_r,

@@ -46,10 +46,14 @@ adds, ``reset()`` clears; a key never counted reads 0.
 * ``launch.<kernel>``: launches of a hand-written kernel
   (``bin_clusters``, ``bin_clusters_super``, ``closest_hit``,
   ``closest_hit_exec``, ``any_hit``, ``any_hit_exec``, ``pt_draws``,
-  ``shadow_keys``, ``shadow_rays``, ``precision_micro.<variant>``); the
-  plain versions never count.  ``shadow_keys`` and ``shadow_rays`` launch once each per shadow
-  batch on the card (one a shading pass that has an occluder), inside its
-  ``dxrt.occluder`` spans.  ``launches()`` gives them by kernel.
+  ``shadow_keys``, ``shadow_rays``, ``compact_keys``, ``compact_gather``,
+  ``precision_micro.<variant>``); the plain versions never count.
+  ``shadow_keys`` and ``shadow_rays`` launch once each per shadow batch on
+  the card (one a shading pass that has an occluder), inside its
+  ``dxrt.occluder`` spans; ``compact_keys`` and ``compact_gather`` once
+  each per compaction, inside its ``dxrt.compact`` span (a frame of
+  depth d, Whitted or path-traced, makes at most d - 1).
+  ``launches()`` gives them by kernel.
 * ``sync.<site>``: each point where a frame's host thread waits for the
   card: a device-to-host read, or a blocking copy of a host value to the
   device (which waits for the stream to drain).  The sites count on every

@@ -742,12 +742,15 @@ def test_pathtrace_sample_matches_plain(cuda):
         assert trace.launches()[name] > 0, name
     before = trace.launches()
     want = sample(plain_isect, plain_occ)
-    # The plain query versions launch nothing; the draws and the shadow
-    # batch's keys and rays are the same kernels' on both sides (the draws
-    # a launch a pass and the jitter's, the others one a shadow batch).
+    # The plain query versions launch nothing; the draws, the shadow
+    # batch's keys and rays and the compaction's keys and queue are the same
+    # kernels' on both sides (the draws a launch a pass and the jitter's,
+    # the shadow kernels one a shadow batch, the compaction's one a
+    # compaction).
     made = trace.launches() - before
     assert made == {name: before[name] for name in
-                    ("pt_draws", "shadow_keys", "shadow_rays")}
+                    ("pt_draws", "shadow_keys", "shadow_rays", "compact_keys",
+                     "compact_gather")}
     assert torch.isfinite(got).all() and (got >= 0).all()
     diff = np.abs(to_u8(got).astype(int) - to_u8(want).astype(int))
     assert ((diff <= 2).all(axis=-1)).mean() >= 0.99

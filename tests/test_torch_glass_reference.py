@@ -113,15 +113,16 @@ def test_counters_equal_the_stats_and_the_candidate_masks(glass_frame):
 def test_counters_add_no_host_sync(glass_frame):
     """Per sub-pixel offset the camera's two uploads and the offset's one;
     per shading pass, which shades the four samples' rows at once, the
-    query's and the occluder's bin widths; per compaction its count and its
-    parked row (every sample's branch-B count rides on the count's read)."""
+    query's and the occluder's bin widths; per compaction its one count
+    read (every sample's branch-B count rides on it; the parked rows are
+    written on the card)."""
     alive = glass_frame["stats"]["alive"].reshape(SPP, DEPTH).sum(dim=0)
     shading = 1 + int((alive[:DEPTH - 1] > 0).sum())
     compacting = 1 + int((alive[:DEPTH - 2] > 0).sum())
     syncs = {k: v for k, v in glass_frame["made"].items() if k.startswith("sync.")}
     assert syncs == {"sync.camera": 2 * SPP, "sync.offset": SPP,
                      "sync.bin_width": 2 * shading,
-                     "sync.compact_count": compacting, "sync.park_row": compacting}
+                     "sync.compact_count": compacting}
 
 
 # ---------------------------------------------------------------------------

@@ -222,7 +222,7 @@ def test_sample_k_is_keyed_by_seed_and_k_and_reset_restarts(bench, tmp_path):
 def test_a_sample_adds_no_host_sync(bench):
     """Camera 2 (the jitter is made on the device: no offset copy), then
     per shading pass the query's and the occluder's bin widths, per
-    compaction its count and its parked row; ``pt.rays`` counts the rows
+    compaction its count; ``pt.rays`` counts the rows
     that entered each pass's query."""
     _, r = bench
     pos, rot = r.camera.snapshot()
@@ -249,4 +249,4 @@ def test_a_sample_adds_no_host_sync(bench):
     compacting = 1 + sum(a > 0 for a in alive[:-1])
     assert made.pop("pt.rays") == W * H + sum(alive)
     assert made == {"sync.camera": 2, "sync.bin_width": 2 * shading,
-                    "sync.compact_count": compacting, "sync.park_row": compacting}
+                    "sync.compact_count": compacting}

@@ -116,12 +116,11 @@ def whitted_sites(alive, kernels: bool) -> dict:
     counts: a pass shades when it is the first or the pass before left
     rays alive; every shading pass runs one closest-hit and one occluder
     query (two width reads, and on the kernel path the any-hit items'
-    read), every shading pass but the last a compaction (its count and
-    its parked row)."""
+    read), every shading pass but the last a compaction (its count)."""
     shading = 1 + sum(int(a) > 0 for a in alive[:DEPTH - 1])
     compacting = shading - (shading == DEPTH)
     want = {"sync.camera": 2, "sync.offset": 1, "sync.bin_width": 2 * shading,
-            "sync.compact_count": compacting, "sync.park_row": compacting}
+            "sync.compact_count": compacting}
     if kernels:
         want["sync.anyhit_items"] = shading
     return {k: v for k, v in want.items() if v}
@@ -280,7 +279,7 @@ def test_compaction_counts_split_and_dropped_rows_on_its_one_read(capacity):
     made = {k: v - before.get(k, 0) for k, v in trace.COUNTS.items()
             if v != before.get(k, 0)}
     assert (alive, dropped) == (min(n_active, capacity), max(n_active - capacity, 0))
-    want = {"sync.compact_count": 1, "sync.park_row": 1, "whitted.split": n_split,
+    want = {"sync.compact_count": 1, "whitted.split": n_split,
             "wavefront.dropped": dropped}
     assert made == {k: v for k, v in want.items() if v}
     one = {k: v[:n] for k, v in cand.items()}
